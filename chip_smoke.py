@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ingest and read path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ingest, read and query paths on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each synchronises the device and fails the run on any error):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the three CUDA kernels from m3_tpu_torch/csrc
-  3. kernels  hold each kernel bit for bit against its plain PyTorch
+  2. build    compile the four CUDA kernels from m3_tpu_torch/csrc
+  3. kernels  hold each codec kernel bit for bit against its plain PyTorch
               version on the card, at the shapes the main path gives it,
-              plus hostile codec rows and edge-length IDs; time both
+              plus hostile codec rows and edge-length IDs; time both.
+              The window kernel (K4) against its plain version for all six
+              stats at the query path's two grids of bench_promql's
+              corpus ([10,000, 119], W 10, stride 1 and [10,000, 358],
+              W 31, stride 3) and a hostile shard-sized grid
+              ([100,000, 438], W 30, stride 3): count, min, max and last
+              bit-identical, sum and m2 within the reorder bound; times by
+              CUDA events beside the nearest single PyTorch pooling call
   4. slice    route 100,000 series IDs to 4096 shards, group the block's
               rows by shard, ingest_step_raw (encode + 1m rollup) on the
               100,000 x 120 block, decode_plane the words back; the round
@@ -17,6 +25,15 @@ Phases (each synchronises the device and fails the run on any error):
               kernel must have launched during this phase
   5. small    the same slice on 512 hostile rows, on the card and with
               the plain versions on the CPU: identical results
+  6. query    bench_promql's storage (10,000 counters x 360 points at
+              10 s, seed 11) and bench_promql_plan_agg's (10,000 over 200
+              hosts, seed 17) through Engine(storage) on the card and
+              Engine(storage, device="cpu"): the rate family,
+              *_over_time, a 5m10s window, a packed subquery and grouped
+              aggregations at step 30 s must agree (same tags and order,
+              same NaN cells, rtol 1e-5, atol 1e-8) and the window kernel
+              must have launched; then a host-clock breakdown of one
+              rate + sum_over_time pair
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
@@ -25,6 +42,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,7 +56,21 @@ REPLACES = {
     "pack": ("m3_tpu_torch/csrc/pack.cu", "m3_tpu/ops/pallas_codec.py:116"),
     "decode": ("m3_tpu_torch/csrc/decode.cu", "m3_tpu/ops/pallas_codec.py:187"),
     "hash": ("m3_tpu_torch/csrc/hash.cu", "m3_tpu/ops/pallas_codec.py:298"),
+    "window": ("m3_tpu_torch/csrc/window.cu", "m3_tpu/ops/pallas_window.py:75"),
 }
+Q_SERIES, Q_HOSTS = 10_000, 200          # bench_promql(_plan_agg)'s sizes
+SHARD_ROWS = 100_000                     # the hostile window grid's rows
+STEP_NS = 30_000_000_000
+QUERIES = (
+    [f"{f}(bench_metric[5m])" for f in ("rate", "increase", "irate", "delta")]
+    + [f"{k}_over_time(bench_metric[5m])" for k in (
+        "sum", "avg", "min", "max", "count", "last", "stddev", "stdvar",
+        "present")]
+    + ["sum_over_time(bench_metric[5m10s])",
+       "max_over_time(rate(bench_metric[5m])[30m:1m])",
+       "sum by (host) (rate(bench_requests[5m]))",
+       "max by (host) (rate(bench_requests[5m]))",
+       "topk(5, rate(bench_requests[5m]))"])
 EPS = 1.2e-7  # 2^-23
 
 
@@ -103,7 +135,8 @@ def main() -> int:
         from m3_tpu_torch.ops import tsz
         from m3_tpu_torch.parallel import ingest
         from m3_tpu_torch.parallel.sharding import ShardSet
-        from m3_tpu_torch.testing import hostile_block, prometheus_ids
+        from m3_tpu_torch.testing import (hostile_block, prometheus_ids,
+                                          promql_corpus)
         from m3_tpu_torch.utils.hashing import pad_ids
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
@@ -124,7 +157,8 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
     ck.build()
-    phase(f"build: {sorted(ck.KERNELS)} in {time.perf_counter() - t:.1f}s")
+    phase(f"build: {sorted(ck.KERNELS) + ['window']} in "
+          f"{time.perf_counter() - t:.1f}s")
 
     # -- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
@@ -207,6 +241,16 @@ def main() -> int:
     del got, want, h_got, h_want, words_plain, chunks, prep
     torch.cuda.empty_cache()
 
+    # K4 window, at the query path's grids and a hostile shard-sized one
+    corpus, t_q = promql_corpus(Q_SERIES, 11)
+    window_rows, results["window"] = _check_window(corpus, t_q, dev)
+    for r in window_rows:
+        print(f"window {r['shape']} W={r['W']} stride={r['stride']} "
+              f"{r['stat']}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} "
+              f"ms, library {r['library_ms']!r} ms, bound {r['bound_ms']!r} "
+              f"ms, max_abs_err {r['max_abs_err']!r}")
+    torch.cuda.empty_cache()
+
     # -- 4. the slice, through the entry points ----------------------------
     ck.reset_launch_counts()
     torch.cuda.synchronize()
@@ -263,8 +307,13 @@ def main() -> int:
     torch.cuda.synchronize()
     phase("small: card == plain CPU path on 512 hostile rows")
 
+    # -- 6. the query path, through Engine.execute_range --------------------
+    plan_corpus, _ = promql_corpus(Q_SERIES, 17, hosts=Q_HOSTS,
+                                   metric=b"bench_requests")
+    launches["window"] = _query_phase(corpus, plan_corpus, t_q)
+
     kernels = []
-    for name in ("pack", "decode", "hash"):
+    for name in ("pack", "decode", "hash", "window"):
         r = results[name]
         src, rep = REPLACES[name]
         kernels.append({
@@ -272,12 +321,223 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes", "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _query_grids(series, t):
+    """The window kernel's inputs on the query path: the centred residual
+    grids that [5m] (W 10, stride 1) and [5m10s] (W 31, stride 3)
+    selectors give at step 30 s over t[30]..t[359]."""
+    from m3_tpu_torch.ops.temporal import center
+    from m3_tpu_torch.query.block import BlockMeta, consolidate_series
+
+    start, end = int(t[30]), int(t[-1])
+    steps = (end - start) // STEP_NS + 1
+    grids = []
+    for range_ns in (300_000_000_000, 310_000_000_000):
+        wgrid = math.gcd(STEP_NS, range_ns)
+        w, stride = range_ns // wgrid, STEP_NS // wgrid
+        meta = BlockMeta(start - (w - 1) * wgrid, wgrid,
+                         (w - 1) + (steps - 1) * stride + 1)
+        grids.append((center(consolidate_series(series, meta, wgrid)[1])[0],
+                      w, stride))
+    return grids
+
+
+def _check_window(series, t, dev):
+    """K4 against its plain version on the card for every stat at the
+    query path's two grids and a hostile shard-sized grid. Returns the
+    per-(shape, stat) rows and the kernels-line entry (the [5m] grid,
+    `sum`, as sum_over_time runs it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.testing import hostile_residuals, window_reorder_bounds
+
+    cases = _query_grids(series, t)
+    cases.append((hostile_residuals(SEED, SHARD_ROWS, 438), 30, 3))
+    rows, worst = [], 0.0
+    for x_np, w, stride in cases:
+        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+        s, k = x.shape
+        t_out = (k - w) // stride + 1
+        sum_b, m2_b = window_reorder_bounds(x, w, stride)
+        finite = torch.isfinite(x)
+        premasked = {
+            "count": finite.float(), "sum": torch.where(finite, x, 0.0),
+            "max": torch.where(finite, x, float("-inf")),
+            "min": torch.where(finite, -x, float("-inf"))}
+        for stat in wk.STATS:
+            got, got_c = wk.window_stat(x, w, stride, stat)
+            want, want_c = wk.window_stat_plain(x, w, stride, stat)
+            torch.cuda.synchronize()
+            check(torch.equal(got_c, want_c),
+                  f"window {stat} {s}x{k}: counts differ")
+            if stat in ("count", "min", "max", "last"):
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"window {stat} {s}x{k}: not bit-identical")
+                err = 0.0
+            else:
+                diff = (got.double() - want.double()).abs()
+                bound = (sum_b if stat == "sum" else m2_b) + 1e-12
+                check(bool((diff <= bound).all()),
+                      f"window {stat} {s}x{k}: beyond the reorder bound by "
+                      f"{float((diff - bound).max())}")
+                err = float(diff.max())
+            worst = max(worst, err)
+            lib = premasked.get(stat)
+            pool = F.max_pool1d if stat in ("min", "max") else F.avg_pool1d
+            row = dict(
+                shape=[s, k], W=w, stride=stride, stat=stat, max_abs_err=err,
+                ms=cuda_ms(lambda: wk.window_stat(x, w, stride, stat), 20),
+                plain_ms=cuda_ms(
+                    lambda: wk.window_stat_plain(x, w, stride, stat), 3),
+                library_ms=None if lib is None else cuda_ms(
+                    lambda: pool(lib[:, None, :], w, stride), 20),
+                bytes=(s * k + 2 * s * t_out) * 4)
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            rows.append(row)
+        del x, sum_b, m2_b, finite, premasked, got, want
+        torch.cuda.empty_cache()
+    phase(f"window: count/min/max/last bit-identical, sum/m2 within the "
+          f"reorder bound at {len(cases)} grids x 6 stats (largest sum/m2 "
+          f"difference {worst!r})")
+    head = dict(rows[1], max_abs_err=worst)
+    return rows, head
+
+
+def _query_phase(corpus, plan_corpus, t):
+    """The query path on the card against device="cpu", bench_metric
+    queries over bench_promql's storage and bench_requests queries over
+    bench_promql_plan_agg's, as the reference benchmark keeps them; returns
+    the window kernel's launches during the card run."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.testing import DictStorage
+
+    storages = {b"bench_metric": DictStorage(corpus),
+                b"bench_requests": DictStorage(plan_corpus)}
+    engines = {m: (Engine(st), Engine(st, device="cpu"))
+               for m, st in storages.items()}
+
+    def engine(q, on_card):
+        return engines[b"bench_requests" if "bench_requests" in q
+                       else b"bench_metric"][0 if on_card else 1]
+
+    start, end = int(t[30]), int(t[-1])
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    card_out = {}
+    t0 = time.perf_counter()
+    for q in QUERIES:
+        tq = time.perf_counter()
+        blk = engine(q, True).execute_range(q, start, end, STEP_NS)
+        blk.values
+        torch.cuda.synchronize()
+        card_out[q] = (blk, time.perf_counter() - tq)
+    card_s = time.perf_counter() - t0
+    launches = wk.window_stat.launches
+    codec = ck.launch_counts()
+    want = sum("_over_time" in q for q in QUERIES)
+    phase(f"query: {len(QUERIES)} queries on the card in {card_s:.3f}s, "
+          f"window launches {launches} (expected {want}), codec {codec}")
+    check(launches == want, f"window kernel launched {launches} times, "
+          f"expected {want}")
+    for q in QUERIES:
+        blk, secs = card_out[q]
+        tq = time.perf_counter()
+        ref = engine(q, False).execute_range(q, start, end, STEP_NS)
+        cpu_s = time.perf_counter() - tq
+        got, exp = np.asarray(blk.values), np.asarray(ref.values)
+        check([x.id() for x in blk.series_tags]
+              == [x.id() for x in ref.series_tags], f"{q}: tags differ")
+        check(got.shape == exp.shape and bool(
+            (np.isnan(got) == np.isnan(exp)).all()), f"{q}: NaN cells differ")
+        check(bool(np.allclose(got, exp, rtol=1e-5, atol=1e-8,
+                               equal_nan=True)), f"{q}: values differ")
+        fin = np.isfinite(exp)
+        rel = float((np.abs(got - exp)[fin] / np.maximum(
+            np.abs(exp[fin]), 1e-30)).max()) if fin.any() else 0.0
+        print(f"query {q!r}: {got.shape}, card {secs:.4f}s, cpu "
+              f"{cpu_s:.4f}s, max rel diff {rel!r}")
+    phase("query: every query on the card equals its device=\"cpu\" run")
+    _breakdown(engines[b"bench_metric"][0], storages[b"bench_metric"], t,
+               card_out)
+    return launches
+
+
+def _breakdown(card, storage, t, card_out) -> None:
+    """Host clock of one rate + sum_over_time pair, by step, each step
+    ending in torch.cuda.synchronize(): fetch + consolidate_series, host
+    prep (_host_diff_grid / center), the H2D copy, the device kernels, the
+    D2H copy plus finish. The results must equal the Engine's."""
+    import torch
+
+    from m3_tpu_torch.ops import temporal as tp
+    from m3_tpu_torch.query import promql
+    from m3_tpu_torch.query.block import BlockMeta, consolidate_series
+    from m3_tpu_torch.query.executor import Engine
+
+    dev = torch.device("cuda")
+    start, end = int(t[30]), int(t[-1])
+    steps = (end - start) // STEP_NS + 1
+    wgrid, w = STEP_NS, 10
+    meta = BlockMeta(start - (w - 1) * wgrid, wgrid, (w - 1) + steps)
+    split = {}
+    for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])"):
+        sel = promql.parse(q).args[0]
+        marks = [time.perf_counter()]
+        series = storage.fetch_raw(promql.selector_matchers(sel),
+                                   meta.start_ns - wgrid, end + 1)
+        grid = consolidate_series(series, meta, wgrid)[1]
+        marks.append(time.perf_counter())
+        if q.startswith("rate"):
+            host = tp.rate_inputs(grid, True)
+            marks.append(time.perf_counter())
+            args = [tp._put(a, dev) for a in host]
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            out = tp.rate_math(*args, W=w, step_s=wgrid / 1e9, range_s=300.0,
+                               is_counter=True, is_rate=True)
+        else:
+            resid, base = tp.center(grid)
+            marks.append(time.perf_counter())
+            args = [tp._put(resid, dev), tp._put(base.astype(np.float32), dev)]
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            out = tp.over_time_math(*args, W=w, kind="sum")
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        res = tp._fetch(out)
+        marks.append(time.perf_counter())
+        check(np.array_equal(res, np.asarray(card_out[q][0].values),
+                             equal_nan=True), f"breakdown of {q} differs")
+        split[q.split("(")[0]] = np.diff(marks)
+    names = ("fetch+consolidate", "host prep", "H2D", "kernels", "D2H+finish")
+    for q, d in split.items():
+        print(f"breakdown {q}: " + ", ".join(
+            f"{n} {x * 1e3:.3f} ms" for n, x in zip(names, d))
+            + f"; total {d.sum() * 1e3:.3f} ms")
+    for label, eng in (("grid cache warm", card), ("cold", Engine(storage))):
+        t0 = time.perf_counter()
+        blocks = [eng.execute_range(q, start, end, STEP_NS)
+                  for q in ("rate(bench_metric[5m])",
+                            "sum_over_time(bench_metric[5m])")]
+        for blk in blocks:
+            blk.values
+        torch.cuda.synchronize()
+        print(f"pair through Engine.execute_range, {label}: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

@@ -1,4 +1,5 @@
-"""m3_tpu_torch: the PyTorch/CUDA port of m3_tpu's ingest and codec path.
+"""m3_tpu_torch: the PyTorch/CUDA port of m3_tpu's ingest, codec and
+PromQL range-query paths.
 
 The JAX package `m3_tpu` is the reference this port is held against; the
 port imports neither JAX nor anything of `m3_tpu`. Public entry points

@@ -1,10 +1,10 @@
-// Python binding of the codec kernels (pack.cu, decode.cu, hash.cu).
+// Python binding of the kernels (pack.cu, decode.cu, hash.cu, window.cu).
 //
 // The only file that includes PyTorch's headers, so the kernel sources
 // stay quick to compile. Each function takes the tensors the Python
-// wrapper in ops/codec_kernels.py has checked and allocated, makes the
-// tensors' device current, launches on PyTorch's current stream of that
-// device and raises if the launch was refused.
+// wrapper (ops/codec_kernels.py, ops/window_kernels.py) has checked and
+// allocated, makes the tensors' device current, launches on PyTorch's
+// current stream of that device and raises if the launch was refused.
 
 #include <torch/extension.h>
 
@@ -20,6 +20,9 @@ cudaError_t m3_decode(const void* words, const void* npoints, void* dt,
                       int window, cudaStream_t stream);
 cudaError_t m3_hash(const void* words, const void* lens, void* out, int n,
                     int cols, uint32_t seed, cudaStream_t stream);
+cudaError_t m3_window(const void* resid, void* stat, void* count, int rows,
+                      int k, int w, int stride, int which,
+                      cudaStream_t stream);
 
 namespace {
 
@@ -52,10 +55,22 @@ void hash(const torch::Tensor& words, const torch::Tensor& lens,
                          at::cuda::getCurrentCUDAStream()));
 }
 
+void window(const torch::Tensor& resid, const torch::Tensor& stat,
+            const torch::Tensor& count, int64_t w, int64_t stride,
+            int64_t which) {
+  const c10::cuda::CUDAGuard guard(resid.device());
+  C10_CUDA_CHECK(m3_window(resid.data_ptr(), stat.data_ptr(),
+                           count.data_ptr(), resid.size(0), resid.size(1),
+                           static_cast<int>(w), static_cast<int>(stride),
+                           static_cast<int>(which),
+                           at::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pack", &pack);
   m.def("decode", &decode);
   m.def("hash", &hash);
+  m.def("window", &window);
 }

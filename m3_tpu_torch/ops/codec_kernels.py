@@ -13,9 +13,10 @@ anything else. On a CPU tensor it runs the plain PyTorch version beside it
 or raises; there is no fallback. Each wrapper counts its launches in a
 plain integer attribute, `wrapper.launches`.
 
-Build: at first use, torch.utils.cpp_extension.load compiles the three
-sources and the binding (csrc/binding.cpp, the only file that includes
-PyTorch's headers) into one extension under build/m3_tpu_torch/ at the
+Build: at first use, torch.utils.cpp_extension.load compiles these three
+sources, the query path's csrc/window.cu (wrapped in ops/window_kernels.py)
+and the binding (csrc/binding.cpp, the only file that includes PyTorch's
+headers) into one extension under build/m3_tpu_torch/ at the
 root of the checkout; ninja runs one compiler per source, all together,
 and rebuilds what changed. u32 data crosses the boundary as int32 tensors
 holding the bit pattern.
@@ -36,7 +37,7 @@ M32 = b64.M32
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "m3_tpu_torch"
-SOURCES = ("binding.cpp", "pack.cu", "decode.cu", "hash.cu")
+SOURCES = ("binding.cpp", "pack.cu", "decode.cu", "hash.cu", "window.cu")
 
 
 @functools.cache

@@ -1,0 +1,172 @@
+"""Cross-series (instant-vector) aggregation (reference: src/query/
+functions/aggregation/{function,take,count_values}.go — sum/min/max/avg/
+count/stddev/stdvar/quantile and topk/bottomk grouped by labels).
+Counterpart of m3_tpu/ops/series_agg.py.
+
+Grouping structure (which output row each series feeds) is label algebra
+and stays on the host. `grouped_reduce` is the f32 device segment reduce
+over the [n_series, n_steps] matrix (index_add_ / scatter_reduce_);
+`grouped_reduce_f64` is the exact host form the engine uses below its
+fan-in threshold. NaN cells are excluded the way the reference skips
+missing points."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve
+
+F32 = torch.float32
+
+
+def _segment_sum(x, gid, n_groups: int):
+    out = torch.zeros((n_groups, x.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, gid, x)
+
+
+def _segment_extreme(x, gid, n_groups: int, largest: bool):
+    """Segment min (or max) with XLA's signed-zero order: -0.0 below +0.0.
+    scatter_reduce_ keeps whichever zero it meets first, so a zero result
+    takes its sign from whether the group holds a -0.0 (min) or a +0.0
+    (max) at that step."""
+    fill = float("-inf") if largest else float("inf")
+    out = torch.full((n_groups, x.shape[1]), fill, dtype=x.dtype,
+                     device=x.device)
+    idx = gid[:, None].expand_as(x)
+    out.scatter_reduce_(0, idx, x, "amax" if largest else "amin",
+                        include_self=True)
+    zeros = (x == 0) & (torch.signbit(x) != largest)
+    has = _segment_sum(zeros.to(F32), gid, n_groups) > 0
+    zero = torch.where(has, 0.0, -0.0) if largest else torch.where(has, -0.0, 0.0)
+    return torch.where(out == 0, zero, out)
+
+
+def _segment_math(values, gid, n_groups: int, kind: str):
+    mask = torch.isfinite(values)
+    z = torch.where(mask, values, 0.0)
+    cnt = _segment_sum(mask.to(F32), gid, n_groups)
+    if kind == "count":
+        out = cnt
+    elif kind == "sum":
+        out = _segment_sum(z, gid, n_groups)
+    elif kind == "avg":
+        out = _segment_sum(z, gid, n_groups) / cnt.clamp(min=1)
+    elif kind == "min":
+        out = _segment_extreme(torch.where(mask, values, float("inf")), gid,
+                               n_groups, largest=False)
+    elif kind == "max":
+        out = _segment_extreme(torch.where(mask, values, float("-inf")), gid,
+                               n_groups, largest=True)
+    elif kind in ("stddev", "stdvar"):
+        mu = _segment_sum(z, gid, n_groups) / cnt.clamp(min=1)
+        dev = torch.where(mask, values - mu[gid], 0.0)
+        var = _segment_sum(dev * dev, gid, n_groups) / cnt.clamp(min=1)
+        out = torch.sqrt(var) if kind == "stddev" else var  # population
+    else:
+        raise ValueError(kind)
+    return torch.where(cnt > 0, out, float("nan"))
+
+
+def grouped_reduce(values: np.ndarray, group_ids: np.ndarray, n_groups: int,
+                   kind: str, device=None) -> np.ndarray:
+    """[S, T] + group id per series -> [G, T] f64, computed in f32 on
+    `device` (one upload of the f32 plane, one download of the result)."""
+    dev = resolve(device)
+    if values.size == 0:
+        return np.full((n_groups, values.shape[1]), np.nan)
+    v = torch.from_numpy(np.ascontiguousarray(values, np.float32)).to(dev)
+    gid = torch.from_numpy(np.asarray(group_ids, np.int64)).to(dev)
+    out = _segment_math(v, gid, n_groups, kind)
+    return out.cpu().numpy().astype(np.float64)
+
+
+def grouped_reduce_f64(values: np.ndarray, group_ids: np.ndarray,
+                       n_groups: int, kind: str) -> np.ndarray:
+    """Exact-f64 host fallback used when magnitudes demand it (counter sums):
+    same semantics as grouped_reduce via np.add.at on the f64 matrix."""
+    S, T = values.shape
+    mask = np.isfinite(values)
+    z = np.where(mask, values, 0.0)
+    cnt = np.zeros((n_groups, T))
+    np.add.at(cnt, group_ids, mask.astype(np.float64))
+    if kind == "count":
+        out = cnt
+    elif kind in ("sum", "avg", "stddev", "stdvar"):
+        s = np.zeros((n_groups, T))
+        np.add.at(s, group_ids, z)
+        if kind == "sum":
+            out = s
+        else:
+            mu = s / np.maximum(cnt, 1)
+            if kind == "avg":
+                out = mu
+            else:
+                dev = np.where(mask, values - mu[group_ids], 0.0)
+                m2 = np.zeros((n_groups, T))
+                np.add.at(m2, group_ids, dev * dev)
+                var = m2 / np.maximum(cnt, 1)
+                out = np.sqrt(var) if kind == "stddev" else var
+    elif kind == "min":
+        out = np.full((n_groups, T), np.inf)
+        np.minimum.at(out, group_ids, np.where(mask, values, np.inf))
+    elif kind == "max":
+        out = np.full((n_groups, T), -np.inf)
+        np.maximum.at(out, group_ids, np.where(mask, values, -np.inf))
+    else:
+        raise ValueError(kind)
+    return np.where(cnt > 0, out, np.nan)
+
+
+def grouped_quantile(values: np.ndarray, group_ids: np.ndarray,
+                     n_groups: int, q: float) -> np.ndarray:
+    """promql quantile(): linear-interpolated quantile across the series of
+    each group, per step (host — group sizes are ragged and small)."""
+    S, T = values.shape
+    out = np.full((n_groups, T), np.nan)
+    for g in range(n_groups):
+        rows = values[group_ids == g]
+        if rows.size == 0:
+            continue
+        with np.errstate(invalid="ignore"):
+            out[g] = np.nanquantile(rows, q, axis=0)
+    return out
+
+
+def topk_mask(values: np.ndarray, group_ids: np.ndarray, n_groups: int,
+              k: int, largest: bool) -> np.ndarray:
+    """Per-step membership mask for topk/bottomk (aggregation/take.go):
+    True where the series is among its group's k best at that step."""
+    S, T = values.shape
+    keep = np.zeros((S, T), dtype=bool)
+    for g in range(n_groups):
+        sel = np.flatnonzero(group_ids == g)
+        if sel.size == 0:
+            continue
+        rows = values[sel]  # [Sg, T]
+        filled = np.where(np.isfinite(rows), rows,
+                          -np.inf if largest else np.inf)
+        order = np.argsort(-filled if largest else filled, axis=0, kind="stable")
+        ranks = np.empty_like(order)
+        np.put_along_axis(ranks, order, np.arange(sel.size)[:, None], axis=0)
+        keep[sel] = (ranks < k) & np.isfinite(rows)
+    return keep
+
+
+def count_values(values: np.ndarray, group_ids: np.ndarray,
+                 n_groups: int) -> dict:
+    """promql count_values(): per (group, step, value) counts; returns
+    {(g, value): [T] counts} (aggregation/count_values.go)."""
+    out = {}
+    S, T = values.shape
+    for g in range(n_groups):
+        rows = values[group_ids == g]
+        for t in range(T):
+            col = rows[:, t]
+            col = col[np.isfinite(col)]
+            for v in np.unique(col):
+                key = (g, float(v))
+                if key not in out:
+                    out[key] = np.zeros(T)
+                out[key][t] = (col == v).sum()
+    return out

@@ -5,11 +5,19 @@ codec property corpus (tests/test_codec_pallas.py `_corpus`): counters,
 2-decimal gauges, raw float noise that churns the rewrite window, sparse
 NaN holes, constants, signed zeros and denormals, and wild raw f64 bit
 patterns (infinities, NaN payloads), with npoints edges 0, 1 and W.
-prometheus_ids draws series IDs shaped like Prometheus label sets."""
+prometheus_ids draws series IDs shaped like Prometheus label sets.
+
+For the query path: hostile_residuals draws f32 residual grids for the
+window kernel, window_reorder_bounds gives the per-window tolerance of its
+f32 sums, and promql_corpus builds the reference benchmark's PromQL
+storage (bench.py bench_promql / bench_promql_plan_agg)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+EPS = 1.2e-7  # 2^-23
 
 
 def hostile_block(seed: int, n: int, w: int):
@@ -64,3 +72,81 @@ def prometheus_ids(n: int, rng: np.random.Generator) -> list:
             labels += f',path="/{"x" * int(plen[i])}"'
         out.append(f"{_METRICS[m[i]]}{{{labels}}}".encode())
     return out
+
+
+def hostile_residuals(seed: int, s: int, k: int) -> np.ndarray:
+    """f32 [s, k] residual grid: N(0, 1) scaled per row by 1e-2..1e3,
+    about 20% NaN holes, some +-inf (missing, like NaN), -0.0 and +0.0
+    runs, an all-NaN row, an all -0.0 row and a row of alternating signed
+    zeros."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((s, k))
+         * 10.0 ** rng.integers(-2, 4, (s, 1))).astype(np.float32)
+    zeros = rng.random((s, k)) < 0.05
+    x[zeros] = np.where(rng.random(zeros.sum()) < 0.5, -0.0, 0.0)
+    x[rng.random((s, k)) < 0.2] = np.nan
+    x[rng.random((s, k)) < 0.01] = np.inf
+    x[rng.random((s, k)) < 0.01] = -np.inf
+    x[0] = np.nan
+    if s > 2:
+        x[1] = -0.0
+        x[2, ::2] = 0.0
+        x[2, 1::2] = -0.0
+    return x
+
+
+def window_reorder_bounds(resid: torch.Tensor, W: int, stride: int):
+    """Per-window tolerance (sum, m2), f64 [S, T_out], for two f32
+    computations of the window sum and the two-pass m2 that add the same
+    cells in different orders: bench.py's reduction-reorder bound
+    2 n eps sqrt(n sum x^2) for the sum; for m2, 2 n eps m2 plus the
+    first- and second-order effect of the two means differing by the sum's
+    bound over n plus one rounding of the divide."""
+    vol = resid.double().unfold(1, W, stride)
+    mask = torch.isfinite(vol)
+    x = torch.where(mask, vol, 0.0)
+    cnt = mask.sum(-1).double()
+    n1 = cnt.clamp(min=1)
+    total = x.sum(-1)
+    m2 = torch.where(mask, vol - (total / n1)[..., None], 0.0).pow(2).sum(-1)
+    depth = 2.0 * n1 * EPS
+    sum_b = depth * torch.sqrt(cnt * (x * x).sum(-1))
+    mu_shift = (sum_b + EPS * total.abs()) / n1
+    m2_b = depth * m2 + 2.0 * torch.sqrt(cnt * m2) * mu_shift \
+        + cnt * mu_shift * mu_shift
+    return sum_b, m2_b
+
+
+class DictStorage:
+    """fetch_raw over a fixed {id: {tags, t, v}} dict: the series whose
+    tags the matchers accept, whole (no time filter), as the same entry
+    objects on every fetch, like the reference benchmark's storage."""
+
+    def __init__(self, series: dict):
+        self.series = series
+
+    def fetch_raw(self, matchers, start_ns, end_ns):
+        return {sid: e for sid, e in self.series.items()
+                if all(m.matches(e["tags"].get(m.name, b"")) for m in matchers)}
+
+
+def promql_corpus(n: int, seed: int, hosts: int = 0,
+                  metric: bytes = b"bench_metric"):
+    """(series dict, timestamps) of the reference PromQL benchmark: n
+    Poisson(5) counters, 360 points at 10 s from 1,700,000,000 s, drawn
+    from np.random.default_rng(seed); with hosts > 0 each series also
+    carries host=host-%03d (i % hosts), as bench_promql_plan_agg's do."""
+    s_ns = 1_000_000_000
+    rng = np.random.default_rng(seed)
+    t = 1_700_000_000 * s_ns + np.arange(360, dtype=np.int64) * 10 * s_ns
+    vals = np.cumsum(rng.poisson(5.0, (n, 360)), axis=1).astype(np.float64)
+    series = {}
+    for i in range(n):
+        tags = {b"__name__": metric, b"i": str(i).encode()}
+        if hosts:
+            tags[b"host"] = b"host-%03d" % (i % hosts)
+            sid = b"%s{host=%s,i=%d}" % (metric, tags[b"host"], i)
+        else:
+            sid = b"%s{i=%d}" % (metric, i)
+        series[sid] = {"tags": tags, "t": t, "v": vals[i]}
+    return series, t

@@ -5,7 +5,12 @@ imports neither JAX nor m3_tpu, so a machine with only PyTorch runs it
 (without the conftest, the marker is registered on the command line):
     python -m pytest tests/test_torch_cuda.py -q --noconftest \
         -o "markers=cuda: needs an NVIDIA GPU"
-Kernels and plain versions compute integer results: equality is exact."""
+The codec kernels and their plain versions compute integer results:
+equality is exact. The window kernel's count, min, max and last are exact
+too (signed zeros included); its sum and m2 are f32 sums in another order,
+held to the per-window reorder bound of m3_tpu_torch.testing.
+window_reorder_bounds. Engine queries on the card against device="cpu"
+use the oracle tolerance rtol 1e-5, atol 1e-8."""
 
 import numpy as np
 import pytest
@@ -13,9 +18,13 @@ import torch
 
 from m3_tpu_torch.ops import codec_kernels as ck
 from m3_tpu_torch.ops import tsz
+from m3_tpu_torch.ops import window_kernels as wk
 from m3_tpu_torch.parallel import ingest
 from m3_tpu_torch.parallel.sharding import ShardSet
-from m3_tpu_torch.testing import hostile_block, prometheus_ids
+from m3_tpu_torch.query.executor import Engine
+from m3_tpu_torch.testing import (DictStorage, hostile_block,
+                                  hostile_residuals, prometheus_ids,
+                                  promql_corpus, window_reorder_bounds)
 from m3_tpu_torch.utils.hashing import pad_ids
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +112,42 @@ def test_slice_on_card_matches_cpu_and_counts_launches(cuda):
     assert after["pack"] == before["pack"] + 1
     assert after["decode"] == before["decode"] + 1
     assert after["hash"] == before["hash"] + 1
+
+
+@pytest.mark.parametrize("stat", wk.STATS)
+@pytest.mark.parametrize("K,W,stride", [
+    (119, 10, 1), (67, 6, 2), (67, 6, 3), (67, 6, 4), (358, 31, 3),
+    (3300, 30, 30), (30, 30, 1), (438, 30, 3)])
+def test_window_kernel_matches_plain(cuda, stat, K, W, stride):
+    x = torch.from_numpy(hostile_residuals(K + W + stride, 777, K)).to(cuda)
+    got, got_c = wk.window_stat(x, W, stride, stat)
+    want, want_c = wk.window_stat_plain(x, W, stride, stat)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c)
+    if stat in ("count", "min", "max", "last"):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        sum_b, m2_b = window_reorder_bounds(x, W, stride)
+        bound = (sum_b if stat == "sum" else m2_b) + 1e-12
+        assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+def test_engine_on_card_matches_cpu_and_launches_the_window_kernel(cuda):
+    series, t = promql_corpus(300, 11)
+    start, end, step = int(t[30]), int(t[-1]), 30 * 10**9
+    card = Engine(DictStorage(series))
+    cpu = Engine(DictStorage(series), device="cpu")
+    for q in ("sum_over_time(bench_metric[5m])", "rate(bench_metric[5m])",
+              "stddev_over_time(bench_metric[5m10s])",
+              "max_over_time(rate(bench_metric[5m])[30m:1m])"):
+        before = wk.window_stat.launches
+        got = card.execute_range(q, start, end, step)
+        want = cpu.execute_range(q, start, end, step)
+        assert [x.id() for x in got.series_tags] == [
+            x.id() for x in want.series_tags]
+        np.testing.assert_array_equal(np.isnan(got.values),
+                                      np.isnan(want.values))
+        np.testing.assert_allclose(got.values, want.values, rtol=1e-5,
+                                   atol=1e-8, equal_nan=True)
+        grew = wk.window_stat.launches > before
+        assert grew == q.startswith(("sum_", "stddev_", "max_")), q

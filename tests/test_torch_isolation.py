@@ -30,6 +30,23 @@ out = ingest.ingest_step_raw(raw, rollup_factor=6, max_words=tsz.max_words_for(2
 dts, dvals = tsz.decode_plane(out[0], npts[order], window=24, device="cpu")
 ok = bool(out[-1]) and (dts.numpy() == ts[order]).all() and (
     dvals.numpy().view(np.uint64) == vals[order].view(np.uint64)).all()
+
+import torch
+from m3_tpu_torch.query.executor import Engine
+from m3_tpu_torch.testing import DictStorage, promql_corpus
+
+series, t = promql_corpus(16, 11)
+for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])",
+          "max by (i) (irate(bench_metric[1m]))"):
+    blk = Engine(DictStorage(series), device="cpu").execute_range(
+        q, int(t[30]), int(t[-1]), 30 * 10**9)
+    ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
+torch.cuda.is_available = lambda: False
+try:
+    Engine(DictStorage(series))
+    ok = False
+except RuntimeError:
+    pass
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "m3_tpu"
               or m.startswith("m3_tpu."))
@@ -38,6 +55,9 @@ print(json.dumps({"ok": bool(ok), "mods": mods}))
 
 
 def test_port_slice_imports_neither_jax_nor_m3_tpu():
+    """The ingest slice and a few Engine queries in a fresh process; the
+    Engine also refuses to start without a card unless asked for the
+    CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -52,6 +72,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from m3_tpu_torch.ops import tsz
     from m3_tpu_torch.parallel import ingest
     from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.ops import series_agg, temporal
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.testing import DictStorage
     from m3_tpu_torch.utils import hashing
 
     ts, vals, npts = ingest.make_example_raw(4, 12, np.random.default_rng(0))
@@ -65,6 +88,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: ingest.ingest_step_raw(
             ingest.make_raw_batch(ts, vals, npts, device="cpu"),
             rollup_factor=6, max_words=tsz.max_words_for(12)),
+        lambda: Engine(DictStorage({})),
+        lambda: temporal.rate(vals, 4, 10, 40),
+        lambda: temporal.over_time(vals, 4, "sum"),
+        lambda: series_agg.grouped_reduce(vals, np.zeros(4, int), 1, "sum"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
