@@ -2,11 +2,13 @@
 """Drive the PyTorch/CUDA port's ingest, read and query paths on one
 NVIDIA GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
 Phases (each synchronises the device and fails the run on any error):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the four CUDA kernels from m3_tpu_torch/csrc
+  2. build    compile the four CUDA kernels from m3_tpu_torch/csrc; beside
+              it, one `nvcc -Xptxas=-v` per source prints each kernel's
+              registers, spills and shared memory
   3. kernels  hold each codec kernel bit for bit against its plain PyTorch
               version on the card, at the shapes the main path gives it,
               plus hostile codec rows and edge-length IDs; time both.
@@ -15,8 +17,17 @@ Phases (each synchronises the device and fails the run on any error):
               corpus ([10,000, 119], W 10, stride 1 and [10,000, 358],
               W 31, stride 3) and a hostile shard-sized grid
               ([100,000, 438], W 30, stride 3): count, min, max and last
-              bit-identical, sum and m2 within the reorder bound; times by
-              CUDA events beside the nearest single PyTorch pooling call
+              bit-identical, sum and m2 within the reorder bound; times
+              beside the nearest single PyTorch pooling call. Every kernel
+              and library time is taken twice: `call_ms` (CUDA events
+              around a Python loop of calls, host enqueue included) and
+              `device_ms` (the same calls captured in one CUDA graph, its
+              replay timed by CUDA events: device time alone)
+  3b. parent  with --parent DIR only: DIR holds the parent commit's
+              m3_tpu_torch/ (git archive); its decode and window wrappers
+              and kernels, built as a second extension, are timed against
+              this checkout's in turns (parent, change, change, parent) at
+              the main path's shapes
   4. slice    route 100,000 series IDs to 4096 shards, group the block's
               rows by shard, ingest_step_raw (encode + 1m rollup) on the
               100,000 x 120 block, decode_plane the words back; the round
@@ -41,6 +52,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -91,7 +103,8 @@ def phase(name: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call over `iters` calls, by CUDA events."""
+    """Mean milliseconds per call over `iters` calls from a Python loop,
+    by CUDA events: the call time, host enqueue included."""
     import torch
 
     fn()
@@ -104,6 +117,44 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call: `iters` calls captured into one
+    CUDA graph, its replay timed by CUDA events. No Python and no enqueue
+    is in the time, only the kernels and the gaps between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def kernel_times(fn, iters: int) -> dict:
+    """A wrapper's call time (`ms` and `call_ms`, the earlier measure) and
+    its device time (`device_ms`)."""
+    call = cuda_ms(fn, iters)
+    return dict(ms=call, call_ms=call, device_ms=device_ms(fn, iters))
+
+
+def times_text(r: dict) -> str:
+    return f"call {r['call_ms']!r} ms, device {r['device_ms']!r} ms"
 
 
 def u32_err(a, b) -> int:
@@ -123,6 +174,12 @@ def int_err(a, b) -> int:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="a checkout (or archive) of the parent commit: also time its "
+             "decode and window wrappers against this checkout's, in turns")
+    args = parser.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -135,8 +192,8 @@ def main() -> int:
         from m3_tpu_torch.ops import tsz
         from m3_tpu_torch.parallel import ingest
         from m3_tpu_torch.parallel.sharding import ShardSet
-        from m3_tpu_torch.testing import (hostile_block, prometheus_ids,
-                                          promql_corpus)
+        from m3_tpu_torch.testing import (hostile_block, hostile_residuals,
+                                          prometheus_ids, promql_corpus)
         from m3_tpu_torch.utils.hashing import pad_ids
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
@@ -156,9 +213,14 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
-    ck.build()
+    ptxas = _start_ptxas(here)
+    try:
+        ck.build()
+    finally:
+        ptxas_text = {src: p.communicate()[0] for src, p in ptxas.items()}
     phase(f"build: {sorted(ck.KERNELS) + ['window']} in "
           f"{time.perf_counter() - t:.1f}s")
+    _print_ptxas(ptxas, ptxas_text)
 
     # -- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(SEED)
@@ -193,10 +255,10 @@ def main() -> int:
     pack_bytes = 4 * chunks[0].numel() * 4 + words.numel() * 4
     results["pack"] = dict(
         max_abs_err=err, bytes=pack_bytes,
-        ms=cuda_ms(lambda: ck.pack_chunks(*chunks, mw), 20),
+        **kernel_times(lambda: ck.pack_chunks(*chunks, mw), 20),
         plain_ms=cuda_ms(lambda: ck.pack_chunks_plain(*chunks, mw), 3))
-    phase(f"pack: bit-identical ({results['pack']['ms']:.3f} ms kernel, "
-          f"{results['pack']['plain_ms']:.3f} ms plain)")
+    phase(f"pack: bit-identical (kernel {times_text(results['pack'])}, "
+          f"plain {results['pack']['plain_ms']!r} ms)")
 
     # K2 decode
     npts = raw.npoints
@@ -214,10 +276,10 @@ def main() -> int:
     dec_bytes = stream_bytes + npts.numel() * 4 + N * W * (4 + 8 + 8) + N * 4
     results["decode"] = dict(
         max_abs_err=err, bytes=dec_bytes,
-        ms=cuda_ms(lambda: ck.decode_points(words, npts, W), 20),
+        **kernel_times(lambda: ck.decode_points(words, npts, W), 20),
         plain_ms=cuda_ms(lambda: ck.decode_points_plain(words, npts, W), 2))
-    phase(f"decode: bit-identical ({results['decode']['ms']:.3f} ms kernel, "
-          f"{results['decode']['plain_ms']:.3f} ms plain)")
+    phase(f"decode: bit-identical (kernel {times_text(results['decode'])}, "
+          f"plain {results['decode']['plain_ms']!r} ms)")
 
     # K3 hash
     hw_np, hl_np = pad_ids(ids)
@@ -233,22 +295,29 @@ def main() -> int:
     check(err == 0, f"hash kernel differs from its plain version: {err}")
     results["hash"] = dict(
         max_abs_err=err, bytes=int(id_lens.sum()) + hl.numel() * 4 + N * 4,
-        ms=cuda_ms(lambda: ck.hash_words(hw, hl), 50),
+        **kernel_times(lambda: ck.hash_words(hw, hl), 50),
         plain_ms=cuda_ms(lambda: ck.hash_words_plain(hw, hl), 3))
     phase(f"hash: bit-identical on {hw.shape[1]} cols and edge lengths 0-7, "
-          f"2100 ({results['hash']['ms']:.3f} ms kernel, "
-          f"{results['hash']['plain_ms']:.3f} ms plain)")
+          f"2100 (kernel {times_text(results['hash'])}, plain "
+          f"{results['hash']['plain_ms']!r} ms)")
     del got, want, h_got, h_want, words_plain, chunks, prep
     torch.cuda.empty_cache()
 
     # K4 window, at the query path's grids and a hostile shard-sized one
     corpus, t_q = promql_corpus(Q_SERIES, 11)
-    window_rows, results["window"] = _check_window(corpus, t_q, dev)
+    window_cases = _query_grids(corpus, t_q)
+    window_cases.append((hostile_residuals(SEED, SHARD_ROWS, 438), 30, 3))
+    window_rows, results["window"] = _check_window(window_cases, dev)
     for r in window_rows:
         print(f"window {r['shape']} W={r['W']} stride={r['stride']} "
-              f"{r['stat']}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} "
-              f"ms, library {r['library_ms']!r} ms, bound {r['bound_ms']!r} "
-              f"ms, max_abs_err {r['max_abs_err']!r}")
+              f"{r['stat']}: kernel {times_text(r)}, plain {r['plain_ms']!r} "
+              f"ms, library call {r['library_ms']!r} ms, device "
+              f"{r['library_device_ms']!r} ms, bound {r['bound_ms']!r} ms, "
+              f"max_abs_err {r['max_abs_err']!r}")
+    torch.cuda.empty_cache()
+    if args.parent:
+        _parent_turns(args.parent, here, words, npts, window_cases, dev)
+    del window_cases
     torch.cuda.empty_cache()
 
     # -- 4. the slice, through the entry points ----------------------------
@@ -319,9 +388,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "call_ms": r["call_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": r.get("library_ms")})
+            "bound_by": "bytes", "library_ms": r.get("library_ms"),
+            "library_device_ms": r.get("library_device_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -349,19 +420,18 @@ def _query_grids(series, t):
     return grids
 
 
-def _check_window(series, t, dev):
-    """K4 against its plain version on the card for every stat at the
-    query path's two grids and a hostile shard-sized grid. Returns the
+def _check_window(cases, dev):
+    """K4 against its plain version on the card for every stat at each
+    (grid, W, stride) of `cases`: the query path's two grids and a hostile
+    shard-sized grid. Returns the
     per-(shape, stat) rows and the kernels-line entry (the [5m] grid,
     `sum`, as sum_over_time runs it)."""
     import torch
     import torch.nn.functional as F
 
     from m3_tpu_torch.ops import window_kernels as wk
-    from m3_tpu_torch.testing import hostile_residuals, window_reorder_bounds
+    from m3_tpu_torch.testing import window_reorder_bounds
 
-    cases = _query_grids(series, t)
-    cases.append((hostile_residuals(SEED, SHARD_ROWS, 438), 30, 3))
     rows, worst = [], 0.0
     for x_np, w, stride in cases:
         x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
@@ -395,14 +465,21 @@ def _check_window(series, t, dev):
             pool = F.max_pool1d if stat in ("min", "max") else F.avg_pool1d
             row = dict(
                 shape=[s, k], W=w, stride=stride, stat=stat, max_abs_err=err,
-                ms=cuda_ms(lambda: wk.window_stat(x, w, stride, stat), 20),
+                **kernel_times(lambda: wk.window_stat(x, w, stride, stat), 20),
                 plain_ms=cuda_ms(
                     lambda: wk.window_stat_plain(x, w, stride, stat), 3),
-                library_ms=None if lib is None else cuda_ms(
-                    lambda: pool(lib[:, None, :], w, stride), 20),
+                library_ms=None, library_device_ms=None,
                 bytes=(s * k + 2 * s * t_out) * 4)
+            if lib is not None:
+                lt = kernel_times(lambda: pool(lib[:, None, :], w, stride), 20)
+                row.update(library_ms=lt["call_ms"],
+                           library_device_ms=lt["device_ms"])
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             rows.append(row)
+        if s == SHARD_ROWS:
+            copy = device_ms(lambda: x.clone())
+            print(f"window yardstick: clone of the [{s}, {k}] grid, device "
+                  f"{copy!r} ms, {2 * x.numel() * 4 / copy / 1e9!r} TB/s")
         del x, sum_b, m2_b, finite, premasked, got, want
         torch.cuda.empty_cache()
     phase(f"window: count/min/max/last bit-identical, sum/m2 within the "
@@ -410,6 +487,102 @@ def _check_window(series, t, dev):
           f"difference {worst!r})")
     head = dict(rows[1], max_abs_err=worst)
     return rows, head
+
+
+def _start_ptxas(here):
+    """One `nvcc -Xptxas=-v` per kernel source, started beside the
+    extension's build: each kernel's registers, spills and shared memory."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = os.path.join(here, "build", "ptxas")
+    os.makedirs(out, exist_ok=True)
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    csrc = os.path.join(here, "m3_tpu_torch", "csrc")
+    return {src: subprocess.Popen(
+        [nvcc, "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+         "-Xptxas=-v", "-c", os.path.join(csrc, src),
+         "-o", os.path.join(out, src + ".o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in sorted(os.listdir(csrc)) if src.endswith(".cu")}
+
+
+def _print_ptxas(procs, texts) -> None:
+    for src, proc in procs.items():
+        check(proc.returncode == 0, f"nvcc -Xptxas=-v {src}: {texts[src][-2000:]}")
+        fn = ""
+        for line in texts[src].splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "Used" in line or "spill" in line:
+                print(f"ptxas {src} {fn}: {line.split(':', 1)[-1].strip()}")
+
+
+def _load_parent(root, here):
+    """The parent checkout's codec and window wrappers, as the package
+    m3_tpu_torch_parent, bound to its own kernels built as a second
+    extension under build/parent_kernels."""
+    import importlib
+    import importlib.util
+
+    from torch.utils.cpp_extension import load
+
+    pkg = os.path.join(os.path.abspath(root), "m3_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "m3_tpu_torch_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    pck = importlib.import_module("m3_tpu_torch_parent.ops.codec_kernels")
+    pwk = importlib.import_module("m3_tpu_torch_parent.ops.window_kernels")
+    build_dir = os.path.join(here, "build", "parent_kernels")
+    os.makedirs(build_dir, exist_ok=True)
+    ext = load(name="m3_tpu_torch_parent_kernels",
+               sources=[str(pck.CSRC / src) for src in pck.SOURCES],
+               extra_cflags=["-O3"],
+               extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+               build_directory=build_dir)
+    pck.build = pwk.build = lambda: ext
+    return pck, pwk
+
+
+def _parent_turns(root, here, words, npts, window_cases, dev) -> None:
+    """The parent's decode and window wrappers against this checkout's at
+    the main path's shapes, in turns parent, change, change, parent, each
+    turn a call time and a device time (kernel_times); the outputs must
+    agree (counts exactly, decode bit for bit)."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    t = time.perf_counter()
+    pck, pwk = _load_parent(root, here)
+    phase(f"parent: built {root} in {time.perf_counter() - t:.1f}s")
+    cases = [("decode", f"[{N}, {W}]", (pck, ck),
+              lambda m: (lambda: m.decode_points(words, npts, W)))]
+    for x_np, w, stride in window_cases:
+        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+        for stat in wk.STATS:
+            cases.append((
+                "window", f"{list(x.shape)} W={w} stride={stride} {stat}",
+                (pwk, wk), lambda m, x=x, w=w, stride=stride, stat=stat: (
+                    lambda: m.window_stat(x, w, stride, stat))))
+    for name, label, (old, new), make in cases:
+        a, b = make(old)(), make(new)()
+        torch.cuda.synchronize()
+        same = (all(torch.equal(u, v) for u, v in zip(a, b)) if name == "decode"
+                else torch.equal(a[1], b[1]))
+        check(same, f"parent and change differ: {name} {label}")
+        del a, b
+        turns = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            turns[side].append(kernel_times(make(
+                old if side == "parent" else new), 20))
+        print(f"turns {name} {label}: " + "; ".join(
+            f"{side} call_ms {[r['call_ms'] for r in rs]!r} device_ms "
+            f"{[r['device_ms'] for r in rs]!r}" for side, rs in turns.items()))
+    phase(f"parent: {len(cases)} cases timed in turns")
 
 
 def _query_phase(corpus, plan_corpus, t):

@@ -1,10 +1,11 @@
 // Python binding of the kernels (pack.cu, decode.cu, hash.cu, window.cu).
 //
 // The only file that includes PyTorch's headers, so the kernel sources
-// stay quick to compile. Each function takes the tensors the Python
-// wrapper (ops/codec_kernels.py, ops/window_kernels.py) has checked and
-// allocated, makes the tensors' device current, launches on PyTorch's
-// current stream of that device and raises if the launch was refused.
+// stay quick to compile. The codec functions take the tensors the Python
+// wrapper (ops/codec_kernels.py) has checked and allocated; `window`
+// checks and allocates itself (ops/window_kernels.py). Each makes the
+// tensors' device current, launches on PyTorch's current stream of that
+// device and raises if the launch was refused.
 
 #include <torch/extension.h>
 
@@ -55,15 +56,33 @@ void hash(const torch::Tensor& words, const torch::Tensor& lens,
                          at::cuda::getCurrentCUDAStream()));
 }
 
-void window(const torch::Tensor& resid, const torch::Tensor& stat,
-            const torch::Tensor& count, int64_t w, int64_t stride,
-            int64_t which) {
+// K4 checks its own input (the Python wrapper checks only on the CPU
+// route) and returns the stat and count planes as one [2, S, T_out]
+// tensor, so a query pays one allocation and no Python checks per call.
+// The messages are literals: a message with streamed values crashed the
+// process on the card's torch 2.11.0+cu128 instead of raising.
+torch::Tensor window(const torch::Tensor& resid, int64_t w, int64_t stride,
+                     int64_t which) {
+  TORCH_CHECK_TYPE(resid.scalar_type() == torch::kFloat32 && resid.dim() == 2,
+                   "window_stat: resid must be a 2-D torch.float32 tensor");
+  TORCH_CHECK_VALUE(resid.is_cuda() && resid.is_contiguous(),
+                    "window_stat: resid must be a contiguous CUDA tensor");
+  const int64_t s = resid.size(0), k = resid.size(1);
+  TORCH_CHECK_VALUE(w >= 1 && stride >= 1 && k >= w,
+                    "window_stat: need 1 <= W <= K and stride >= 1");
+  TORCH_CHECK_VALUE(s <= INT32_MAX && k <= INT32_MAX && which >= 0 && which < 6,
+                    "window_stat: grid or stat out of range");
   const c10::cuda::CUDAGuard guard(resid.device());
-  C10_CUDA_CHECK(m3_window(resid.data_ptr(), stat.data_ptr(),
-                           count.data_ptr(), resid.size(0), resid.size(1),
-                           static_cast<int>(w), static_cast<int>(stride),
-                           static_cast<int>(which),
-                           at::cuda::getCurrentCUDAStream()));
+  const int64_t t_out = (k - w) / stride + 1;
+  torch::Tensor out = torch::empty({2, s, t_out}, resid.options());
+  if (s > 0) {
+    float* stat = out.data_ptr<float>();
+    C10_CUDA_CHECK(m3_window(resid.data_ptr(), stat, stat + s * t_out, s, k,
+                             static_cast<int>(w), static_cast<int>(stride),
+                             static_cast<int>(which),
+                             at::cuda::getCurrentCUDAStream()));
+  }
+  return out;
 }
 
 }  // namespace

@@ -6,10 +6,11 @@ ops/codec_kernels.py:
 
   window_stat   csrc/window.cu   replaces pallas_window._kernel
 
-The wrapper checks device, dtype, shape and contiguity and raises on
-anything else. On a CPU tensor it runs the plain PyTorch version beside it
-(`window_stat_plain`); on a CUDA tensor it launches the kernel on the
-current stream or raises; there is no fallback. It counts its launches in
+On a CUDA tensor the wrapper launches the kernel on the current stream
+through the binding, which checks dtype, shape, contiguity and the window
+and raises on anything else; there is no fallback. On a CPU tensor the
+wrapper makes the same checks in Python and runs the plain PyTorch version
+beside it (`window_stat_plain`). It counts its launches in
 `window_stat.launches`.
 """
 
@@ -22,6 +23,7 @@ from .codec_kernels import _check, build
 
 F32 = torch.float32
 STATS = ("count", "sum", "min", "max", "last", "m2")
+_STAT_INDEX = {name: i for i, name in enumerate(STATS)}  # csrc/window.cu Stat
 
 
 def window_stat_plain(resid, W: int, stride: int, stat: str):
@@ -61,26 +63,24 @@ def window_stat(resid, W: int, stride: int, stat: str):
     of `resid` ([S, K] f32, non-finite = missing); window t reads columns
     [t * stride, t * stride + W), T_out = (K - W) // stride + 1. Needs
     K >= W: the caller (temporal._window_stat_strided) returns the empty
-    planes itself."""
+    planes itself. On a CUDA tensor the binding checks the input and
+    returns both planes as views of one [2, S, T_out] allocation."""
+    which = _STAT_INDEX.get(stat)
+    if which is None:
+        raise ValueError(f"unknown window stat {stat!r}")
+    if isinstance(resid, torch.Tensor) and resid.is_cuda:
+        out = build().window(resid, int(W), int(stride), which)
+        if out.shape[1]:
+            window_stat.launches += 1
+        return out.unbind(0)
     dev = resid.device
     _check("window_stat", dict(resid=resid), F32, 2, dev)
-    if stat not in STATS:
-        raise ValueError(f"unknown window stat {stat!r}")
     W, stride = int(W), int(stride)
-    S, K = resid.shape
+    K = resid.shape[1]
     if W < 1 or stride < 1 or K < W:
         raise ValueError(f"window_stat: need 1 <= W <= K and stride >= 1, "
                          f"got W={W}, stride={stride}, K={K}")
-    if dev.type == "cpu":
-        return window_stat_plain(resid, W, stride, stat)
-    t_out = (K - W) // stride + 1
-    out = torch.empty((S, t_out), dtype=F32, device=dev)
-    cnt = torch.empty((S, t_out), dtype=F32, device=dev)
-    if S == 0:
-        return out, cnt
-    build().window(resid, out, cnt, W, stride, STATS.index(stat))
-    window_stat.launches += 1
-    return out, cnt
+    return window_stat_plain(resid, W, stride, stat)
 
 
 window_stat.launches = 0

@@ -151,3 +151,107 @@ def test_engine_on_card_matches_cpu_and_launches_the_window_kernel(cuda):
                                    atol=1e-8, equal_nan=True)
         grew = wk.window_stat.launches > before
         assert grew == q.startswith(("sum_", "stddev_", "max_")), q
+
+
+# -- edges of the tiled window kernel and the staged decode ---------------
+
+
+def _window_case(x, W, stride, stat):
+    got, got_c = wk.window_stat(x, W, stride, stat)
+    want, want_c = wk.window_stat_plain(x, W, stride, stat)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c)
+    if stat in ("count", "min", "max", "last"):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        sum_b, m2_b = window_reorder_bounds(x, W, stride)
+        bound = (sum_b if stat == "sum" else m2_b) + 1e-12
+        assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("stat", wk.STATS)
+def test_window_kernel_takes_a_misaligned_row_slice(cuda, stat):
+    """resid[1:] at K = 119 starts 476 bytes into its allocation, off a
+    16-byte line: the staged copy takes its head and tail singly."""
+    base = torch.from_numpy(hostile_residuals(31, 900, 119)).to(cuda)
+    for lo in (1, 2, 3):
+        x = base[lo:]
+        assert x.is_contiguous() and x.data_ptr() % 16
+        _window_case(x, 10, 1, stat)
+        _window_case(x, 31, 3, stat)
+
+
+@pytest.mark.parametrize("stat", wk.STATS)
+def test_window_kernel_ragged_row_tiles(cuda, stat):
+    """Row counts around the tile size: the kernel aims at 8 tiles per SM,
+    so at R * 8 * SMs -/+ 1 rows the tiles hold R (or R + 1) rows and the
+    last one is ragged."""
+    tiles = 8 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (1, 2, 3 * tiles - 1, 3 * tiles + 1):
+        x = torch.from_numpy(hostile_residuals(rows, rows, 119)).to(cuda)
+        _window_case(x, 10, 1, stat)
+        _window_case(x, 30, 3, stat)
+
+
+@pytest.mark.parametrize("stat", wk.STATS)
+@pytest.mark.parametrize("K,W,stride", [
+    (1, 1, 1), (2, 1, 1), (2, 2, 1), (3, 2, 5), (3, 3, 1), (119, 119, 1),
+    (119, 1, 1), (119, 1, 4), (67, 6, 7), (67, 4, 9), (67, 6, 6),
+    (5000, 30, 3), (5000, 100, 7), (4500, 2000, 1), (9000, 2100, 300)])
+def test_window_kernel_edges(cuda, stat, K, W, stride):
+    """K < 4, W = K, W = 1, stride > W, rows longer than a tile (column
+    tiles) and windows wider than half a tile (the direct kernel)."""
+    x = torch.from_numpy(hostile_residuals(K * 7 + W, 40, K)).to(cuda)
+    _window_case(x, W, stride, stat)
+
+
+@pytest.mark.parametrize("stat", ("min", "max"))
+def test_window_kernel_signed_zero_ties(cuda, stat):
+    """Windows of only -0.0, +0.0 and holes: min gives -0.0 wherever the
+    window holds one, max +0.0; the order keys must not lose the sign."""
+    rng = np.random.default_rng(12)
+    x = np.where(rng.random((300, 64)) < 0.5, -0.0, 0.0).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = np.nan
+    x = torch.from_numpy(x).to(cuda)
+    for W, stride in ((1, 1), (4, 1), (6, 3), (5, 2)):
+        _window_case(x, W, stride, stat)
+
+
+def test_window_kernel_raises_on_bad_input(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        wk.window_stat(x.double(), 4, 1, "sum")
+    with pytest.raises(ValueError):
+        wk.window_stat(x.t(), 4, 1, "sum")
+    with pytest.raises(ValueError):
+        wk.window_stat(x, 9, 1, "sum")
+    with pytest.raises(ValueError):
+        wk.window_stat(x, 4, 0, "sum")
+    with pytest.raises(ValueError):
+        wk.window_stat(x, 4, 1, "median")
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (127, 1), (129, 13), (300, 41),
+                                 (257, 120), (128, 7)])
+def test_decode_kernel_staged_edges(cuda, n, w):
+    """N not a multiple of the block's 128 series, W = 1 and W not a
+    multiple of the 8 points staged between stores."""
+    chunks, npts = _chunks(8 + n, max(n, 3), w, cuda)
+    words = ck.pack_chunks(*chunks, tsz.max_words_for(w))[:n]
+    npts = npts[:n]
+    got = ck.decode_points(words, npts, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ck.decode_points_plain(words, npts, w)):
+        assert torch.equal(a, b)
+
+
+def test_decode_kernel_takes_a_row_slice(cuda):
+    """words[1:] (and npoints[1:]) as the kernel's input: a row slice that
+    starts one row into its allocation."""
+    chunks, npts = _chunks(9, 300, 120, cuda)
+    words = ck.pack_chunks(*chunks, tsz.max_words_for(120))
+    for lo in (1, 3):
+        got = ck.decode_points(words[lo:], npts[lo:], 120)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ck.decode_points_plain(words[lo:], npts[lo:], 120)):
+            assert torch.equal(a, b)
