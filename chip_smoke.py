@@ -45,7 +45,31 @@ Phases (each synchronises the device and fails the run on any error):
               same NaN cells, rtol 1e-5, atol 1e-8) and the window kernel
               must have launched; then a host-clock breakdown of one
               rate + sum_over_time pair
+  7. storage  the storage node's write -> seal -> read path on the card.
+              (a) bench_hot_set_read's build at the north star's series
+              count: 100,000 series in Database(ShardSet(4)) (index and
+              commit log off), two 2 h blocks of 120 points per series
+              (seed 53), one write_batch per step (the hash kernel each
+              time), a tick past the second block + buffer_past seals 8
+              blocks (the pack kernel each time; the seal's word tensors
+              stay on the card in the block cache); the seal's words equal
+              the plain pack of the same chunks, and the decode kernel
+              equals its plain version at the storage path's shapes; the
+              2,000-read mix (90% from a 5% hot set) once cold and 3 times
+              warm (reads/s, p99, cache stats); 50 cached reads equal the
+              same reads with the cache bypassed; read_all of every block
+              equals the written planes bit for bit; the budget's total
+              beside torch.cuda.memory_allocated().
+              (b) the query phase's two corpora written through
+              write_batch with tags into Database(ShardSet(16)) with the
+              namespace index, sealed, and the 18 queries through
+              Engine(LocalStorage(db)) on the card: equal to phase 6's
+              Engine(DictStorage) answers (same tags and order, same NaN
+              cells, rtol 1e-5, atol 1e-8), the window kernel launched;
+              then the rate + sum_over_time breakdown over LocalStorage
 
+Every kernel's launches are counted per path (slice, query, storage),
+each count set to 0 just before its path is driven and read just after.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -53,6 +77,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -71,6 +96,11 @@ REPLACES = {
     "window": ("m3_tpu_torch/csrc/window.cu", "m3_tpu/ops/pallas_window.py:75"),
 }
 Q_SERIES, Q_HOSTS = 10_000, 200          # bench_promql(_plan_agg)'s sizes
+# bench_hot_set_read's build at the north star's series count: 4 shards,
+# two 2 h blocks of 120 points per series, a 2,000-read mix, seed 53.
+STORE_SERIES, STORE_SHARDS, STORE_PPB, STORE_SEED = 100_000, 4, 120, 53
+HOT_READS, HOT_FRAC, HOT_WEIGHT, WARM_PASSES = 2_000, 0.05, 0.9, 3
+BLOCK_NS, MINUTE_NS = 2 * 3600 * 10**9, 60 * 10**9
 SHARD_ROWS = 100_000                     # the hostile window grid's rows
 STEP_NS = 30_000_000_000
 QUERIES = (
@@ -379,7 +409,14 @@ def main() -> int:
     # -- 6. the query path, through Engine.execute_range --------------------
     plan_corpus, _ = promql_corpus(Q_SERIES, 17, hosts=Q_HOSTS,
                                    metric=b"bench_requests")
-    launches["window"] = _query_phase(corpus, plan_corpus, t_q)
+    query_launches, card_out = _query_phase(corpus, plan_corpus, t_q)
+    by_path = {name: {"slice": launches.get(name, 0)} for name in REPLACES}
+    for name in REPLACES:
+        by_path[name]["query"] = query_launches[name]
+
+    # -- 7. the storage node: write -> seal -> read, PromQL from it ---------
+    for name, n in _storage_phase(corpus, plan_corpus, t_q, card_out).items():
+        by_path[name]["storage"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -387,7 +424,9 @@ def main() -> int:
         src, rep = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "call_ms": r["call_ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -621,6 +660,7 @@ def _query_phase(corpus, plan_corpus, t):
     card_s = time.perf_counter() - t0
     launches = wk.window_stat.launches
     codec = ck.launch_counts()
+    query_launches = dict(codec, window=launches)
     want = sum("_over_time" in q for q in QUERIES)
     phase(f"query: {len(QUERIES)} queries on the card in {card_s:.3f}s, "
           f"window launches {launches} (expected {want}), codec {codec}")
@@ -646,10 +686,15 @@ def _query_phase(corpus, plan_corpus, t):
     phase("query: every query on the card equals its device=\"cpu\" run")
     _breakdown(engines[b"bench_metric"][0], storages[b"bench_metric"], t,
                card_out)
-    return launches
+    with _instrumented({}) as pair:
+        for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])"):
+            engine(q, True).execute_range(q, start, end, STEP_NS).values
+    print(f"pair through Engine.execute_range, traced: "
+          f"{pair['wall'] * 1e3:.3f} ms; {_split_text(pair)}")
+    return query_launches, card_out
 
 
-def _breakdown(card, storage, t, card_out) -> None:
+def _breakdown(card, storage, t, card_out, label: str = "") -> None:
     """Host clock of one rate + sum_over_time pair, by step, each step
     ending in torch.cuda.synchronize(): fetch + consolidate_series, host
     prep (_host_diff_grid / center), the H2D copy, the device kernels, the
@@ -698,10 +743,10 @@ def _breakdown(card, storage, t, card_out) -> None:
         split[q.split("(")[0]] = np.diff(marks)
     names = ("fetch+consolidate", "host prep", "H2D", "kernels", "D2H+finish")
     for q, d in split.items():
-        print(f"breakdown {q}: " + ", ".join(
+        print(f"breakdown{label} {q}: " + ", ".join(
             f"{n} {x * 1e3:.3f} ms" for n, x in zip(names, d))
             + f"; total {d.sum() * 1e3:.3f} ms")
-    for label, eng in (("grid cache warm", card), ("cold", Engine(storage))):
+    for which, eng in (("grid cache warm", card), ("cold", Engine(storage))):
         t0 = time.perf_counter()
         blocks = [eng.execute_range(q, start, end, STEP_NS)
                   for q in ("rate(bench_metric[5m])",
@@ -709,8 +754,434 @@ def _breakdown(card, storage, t, card_out) -> None:
         for blk in blocks:
             blk.values
         torch.cuda.synchronize()
-        print(f"pair through Engine.execute_range, {label}: "
+        print(f"pair through Engine.execute_range{label}, {which}: "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+
+
+def _storage_phase(corpus, plan_corpus, t, card_out) -> dict:
+    """Phase 7: the storage node on the card. Returns each kernel's
+    launches over the phase's two paths (the counts set to 0 before each
+    and read after)."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.storage import block_cache
+
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db, hot = _write_seal_read()
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    secs = time.perf_counter() - t0
+    phase(f"storage (a): write -> seal -> hot-set read in {secs:.1f}s host "
+          f"clock, launches {launches}")
+    check(launches["hash"] == hot["write_calls"],
+          f"hash kernel launched {launches['hash']} times for "
+          f"{hot['write_calls']} write_batch calls")
+    check(launches["pack"] == hot["sealed"],
+          f"pack kernel launched {launches['pack']} times for "
+          f"{hot['sealed']} seals")
+    check(launches["decode"] > 0, "the decode kernel did not launch")
+    _check_sealed_planes(db)
+    db.close()
+    check(block_cache.get_cache().budget.total() == 0,
+          "the closed database left bytes charged to the budget")
+    del db
+    torch.cuda.empty_cache()
+
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    query_launches = _stored_promql(corpus, plan_corpus, t, card_out)
+    for name, n in query_launches.items():
+        launches[name] += n
+    return launches
+
+
+def _write_seal_read():
+    """bench_hot_set_read on the card at STORE_SERIES series: the writes,
+    the seal and the 2,000-read mix, cold once and warm WARM_PASSES times.
+    Returns the database and the counts the checks need."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    rng = np.random.default_rng(STORE_SEED)
+    t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
+    step_ns = BLOCK_NS // STORE_PPB
+    now = {"t": t0}
+    db = Database(ShardSet(num_shards=STORE_SHARDS), clock=lambda: now["t"])
+    db.ensure_namespace(b"bench", NamespaceOptions(
+        index_enabled=False, snapshot_enabled=False,
+        retention_ns=4 * 24 * 3600 * 10**9, writes_to_commitlog=False))
+    ids = [b"hot-%06d" % i for i in range(STORE_SERIES)]
+    ones = np.ones(STORE_SERIES)
+    vals_by_step = rng.standard_normal((2 * STORE_PPB,))
+    with _instrumented(WRITE_STEPS) as write:
+        for step in range(2 * STORE_PPB):
+            ts_i = t0 + step * step_ns
+            now["t"] = ts_i
+            db.write_batch(b"bench", ids,
+                           np.full(STORE_SERIES, ts_i, np.int64),
+                           ones * vals_by_step[step])
+    write_s = write["wall"]
+    points = STORE_SERIES * 2 * STORE_PPB
+    print(f"storage write: {2 * STORE_PPB} write_batch calls of "
+          f"{STORE_SERIES} points in {write_s:.3f}s host clock, "
+          f"{points / write_s:.1f} datapoints/s; {_split_text(write)}")
+    now["t"] = t0 + 2 * BLOCK_NS + 11 * MINUTE_NS
+    with _instrumented(SEAL_STEPS) as seal:
+        stats = db.tick()
+    seal_s = seal["wall"]
+    check(stats["sealed"] == 2 * STORE_SHARDS, f"tick sealed {stats}")
+    cache = block_cache.get_cache()
+    print(f"storage seal split: {_split_text(seal)}")
+    print(f"storage seal: {stats['sealed']} blocks in {seal_s:.3f}s host "
+          f"clock, {seal_s / stats['sealed'] * 1e3:.3f} ms per block; "
+          f"retained {cache.stats()['retained']} word tensors, "
+          f"{cache.resident_bytes()} bytes; budget total "
+          f"{cache.budget.total()} bytes, torch.cuda.memory_allocated() "
+          f"{torch.cuda.memory_allocated()} bytes")
+    check(cache.stats()["retained"] == stats["sealed"],
+          "the seal's word tensors were not retained")
+    counts = ck.launch_counts()
+    _check_storage_kernels(db)
+    for name, fn in ck.KERNELS.items():  # comparisons do not count
+        fn.launches = counts[name]
+
+    n_hot = max(1, int(STORE_SERIES * HOT_FRAC))
+    hot_ids = rng.permutation(STORE_SERIES)[:n_hot]
+    draws = rng.random(HOT_READS)
+    pick_hot = hot_ids[rng.integers(0, n_hot, HOT_READS)]
+    pick_cold = rng.integers(0, STORE_SERIES, HOT_READS)
+    mix = np.where(draws < HOT_WEIGHT, pick_hot, pick_cold)
+    start, end = t0, t0 + 2 * BLOCK_NS
+
+    def run_pass():
+        durs = np.empty(HOT_READS)
+        total = 0
+        for i, sidx in enumerate(mix):
+            r0 = time.perf_counter()
+            ts, _ = db.read(b"bench", ids[int(sidx)], start, end)
+            durs[i] = time.perf_counter() - r0
+            total += len(ts)
+        return durs, total
+
+    decode_before = ck.decode_points.launches
+    cold, n_points = run_pass()
+    cold_decodes = ck.decode_points.launches - decode_before
+    check(n_points == HOT_READS * 2 * STORE_PPB, f"cold pass read {n_points}")
+    print(f"storage hot-set read, cold: {HOT_READS / cold.sum():.1f} reads/s, "
+          f"p99 {np.quantile(cold, 0.99) * 1e3:.4f} ms, mean "
+          f"{cold.mean() * 1e3:.4f} ms, slowest {cold.max() * 1e3:.3f} ms, "
+          f"{cold_decodes} decode launches; {cache.stats()}")
+    for k in range(WARM_PASSES):
+        decode_before = ck.decode_points.launches
+        warm, got = run_pass()
+        check(got == n_points, f"warm pass read {got}")
+        print(f"storage hot-set read, warm {k + 1}: "
+              f"{HOT_READS / warm.sum():.1f} reads/s, p99 "
+              f"{np.quantile(warm, 0.99) * 1e3:.4f} ms, mean "
+              f"{warm.mean() * 1e3:.4f} ms, "
+              f"{ck.decode_points.launches - decode_before} decode launches")
+    stats = cache.stats()
+    hit_rate = stats["hits"] / max(1, stats["hits"] + stats["misses"])
+    print(f"storage block cache: {stats}, hit rate {hit_rate!r}")
+    sample = mix[rng.integers(0, HOT_READS, 50)]
+    cached = [db.read(b"bench", ids[int(i)], start, end) for i in sample]
+    uncached, durs = [], np.empty(len(sample))
+    with block_cache.disabled():
+        for j, i in enumerate(sample):
+            r0 = time.perf_counter()
+            uncached.append(db.read(b"bench", ids[int(i)], start, end))
+            durs[j] = time.perf_counter() - r0
+    print(f"storage read, cache bypassed (two cold one-row decodes a read): "
+          f"mean {durs.mean() * 1e3:.4f} ms, p99 "
+          f"{np.quantile(durs, 0.99) * 1e3:.4f} ms")
+    for (ct, cv), (ut, uv) in zip(cached, uncached):
+        check(ct.tobytes() == ut.tobytes() and cv.tobytes() == uv.tobytes(),
+              "a cached read differs from the bypassed decode")
+    phase("storage (a): 50 cached reads equal the bypassed decode bit for bit")
+    return db, {"write_calls": 2 * STORE_PPB, "sealed": 2 * STORE_SHARDS}
+
+
+# The steps of a write_batch and of a seal that _instrumented times:
+# label -> (source file suffix, function name) as cProfile records them.
+_D2H = ("~", "<method 'cpu' of 'torch._C.TensorBase' objects>")
+WRITE_STEPS = {
+    "hash_batch (ID padding, H2D, K3)": ("utils/hashing.py", "hash_batch"),
+    "of which pad_ids": ("utils/hashing.py", "pad_ids"),
+    "shard ids D2H": _D2H,
+    "Shard.write_batch": ("storage/shard.py", "write_batch"),
+    "of which registry resolve": ("storage/series.py", "lookup_batch"),
+    "of which buffer append": ("storage/buffer.py", "write_batch"),
+    "of which new-series inserts": ("storage/insert_queue.py", "insert"),
+}
+SEAL_STEPS = {
+    "buffer drain (dedup + to_dense)": ("storage/buffer.py", "drain"),
+    "encode_block": ("storage/block.py", "encode_block"),
+    "of which host prep": ("ops/tsz.py", "prepare_encode_inputs"),
+    "of which encode enqueue": ("ops/tsz.py", "encode_prepared"),
+    "of which D2H (waits for the encode)": _D2H,
+    "of which boundary metadata": ("ops/tsz.py", "boundary_metadata"),
+    "of which time unit": ("storage/block.py", "choose_time_unit"),
+}
+
+
+@contextlib.contextmanager
+def _instrumented(steps):
+    """Host clock of the block (ending in a synchronise), the cumulative
+    seconds of the functions `steps` names (cProfile), and the device's
+    busy seconds (torch.profiler, CUDA activity only: kernels and copies),
+    in the dict it yields. cProfile counts Python calls, which these
+    steps make few of, so the overhead is small."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    prof = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        prof.enable()
+        yield res
+        torch.cuda.synchronize()
+        prof.disable()
+        res["wall"] = time.perf_counter() - t0
+    split = dict.fromkeys(steps, 0.0)
+    for (path, _line, func), row in pstats.Stats(prof).stats.items():
+        for label, (suffix, name) in steps.items():
+            if func == name and path.endswith(suffix):
+                split[label] += row[3]
+    res["split"] = split
+    res["device"] = _device_seconds(trace)
+
+
+def _device_seconds(trace):
+    """Busy seconds of the device in a torch.profiler trace (kernel and
+    copy durations summed), or None when the trace holds no device time."""
+    total = 0.0
+    for evt in trace.events():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            total += evt.time_range.elapsed_us()
+    if total == 0.0:
+        total = sum(getattr(e, "self_device_time_total", 0) or 0
+                    for e in trace.key_averages())
+    return total / 1e6 if total > 0 else None
+
+
+def _split_text(res) -> str:
+    dev = res["device"]
+    busy = ("device busy not measured (no device time in the trace)"
+            if dev is None else f"device busy {dev * 1e3:.3f} ms "
+            f"({dev / res['wall'] * 100:.3f}% of the host clock)")
+    return "; ".join([f"{k} {v * 1e3:.3f} ms" for k, v in res["split"].items()]
+                     + [busy])
+
+
+def _sealed_blocks(db):
+    for shard in db.namespace(b"bench").shards.values():
+        for bs, blk in sorted(shard.blocks.items()):
+            yield shard, bs, blk
+
+
+def _check_storage_kernels(db) -> None:
+    """The kernels at the storage path's shapes against their plain
+    versions on the card, before any read: the pack of one seal's chunks
+    (the seal's own words must equal it), the decode of one block's
+    retained word tensor (an admission) and of one row (a cold read)."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import tsz
+    from m3_tpu_torch.storage import block_cache
+
+    shard, bs, blk = next(_sealed_blocks(db))
+    words, npoints = block_cache.get_cache().encoded(blk)
+    with block_cache.disabled():
+        ts, vals, npts = blk.read_all()
+    s = blk.num_series
+    sp = words.shape[0]
+    pad = np.arange(sp) % s
+    inp = tsz.prepare_encode_inputs(
+        ts[pad] // blk.time_unit.nanos, vals[pad], npts[pad])
+    chunks = tsz.encode_chunks(**{k: inp[k] for k in (
+        "dt", "t0", "v", "int_mode", "k", "npoints", "ts_regular",
+        "delta0")})
+    mw = words.shape[1]
+    got = ck.pack_chunks(*chunks, mw)
+    want = ck.pack_chunks_plain(*chunks, mw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "pack kernel differs from its plain "
+          "version at the seal's shape")
+    check(torch.equal(got[:s].cpu(), torch.from_numpy(
+        blk.words.view(np.int32))), "the sealed words differ from the pack "
+          "of the same block's chunks")
+    for w_in, n_in in ((words, npoints), (words[:1], npoints[:1])):
+        got = ck.decode_points(w_in, n_in, blk.window)
+        want = ck.decode_points_plain(w_in, n_in, blk.window)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"decode kernel differs from its plain version at "
+              f"{list(w_in.shape)}")
+        r = kernel_times(lambda: ck.decode_points(w_in, n_in, blk.window), 50)
+        print(f"storage decode kernel at {list(w_in.shape)}, window "
+              f"{blk.window}: {times_text(r)}")
+    r = kernel_times(lambda: ck.pack_chunks(*chunks, mw), 20)
+    print(f"storage pack kernel at [{sp}, {chunks[0].shape[1]}] slots: "
+          f"{times_text(r)}")
+    phase(f"storage kernels: pack at [{sp}, {chunks[0].shape[1]}] slots and "
+          f"decode at {list(words.shape)} and [1, {mw}] equal their plain "
+          f"versions; the seal's words equal the plain pack")
+
+
+def _check_sealed_planes(db) -> None:
+    """read_all of every sealed block, through the cache and bypassing it,
+    equals the written planes bit for bit."""
+    from m3_tpu_torch.storage import block_cache
+
+    t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
+    step_ns = BLOCK_NS // STORE_PPB
+    vals_by_step = np.random.default_rng(STORE_SEED).standard_normal(
+        (2 * STORE_PPB,))
+    n_blocks = 0
+    for shard, bs, blk in _sealed_blocks(db):
+        k = (bs - t0) // BLOCK_NS
+        want_t = bs + np.arange(STORE_PPB, dtype=np.int64) * step_ns
+        want_v = vals_by_step[k * STORE_PPB:(k + 1) * STORE_PPB]
+        for cached in (True, False):
+            if cached:
+                ts, vals, npts = blk.read_all()
+            else:
+                with block_cache.disabled():
+                    ts, vals, npts = blk.read_all()
+            check(bool((npts == STORE_PPB).all()), "npoints differ")
+            check(bool((ts[:, :STORE_PPB] == want_t).all()),
+                  f"block {bs} of shard {shard.shard_id}: timestamps differ")
+            check(bool((vals[:, :STORE_PPB].view(np.uint64)
+                        == want_v.view(np.uint64)).all()),
+                  f"block {bs} of shard {shard.shard_id}: values differ")
+        n_blocks += 1
+    phase(f"storage (a): read_all of all {n_blocks} blocks equals the written "
+          f"planes bit for bit, cached and bypassed")
+
+
+def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
+    """Phase 7 (b): both query corpora written with tags into a 16-shard
+    Database with the namespace index, sealed, and the 18 queries through
+    Engine(LocalStorage(db)) on the card, held against phase 6's
+    Engine(DictStorage) answers. Returns the kernels' launches."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.storage import LocalStorage
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.testing import write_corpus
+
+    now = {"t": int(t[0])}
+    db = Database(ShardSet(num_shards=16), clock=lambda: now["t"])
+    db.ensure_namespace(b"default")
+    w0 = time.perf_counter()
+    calls = 0
+    for series in (corpus, plan_corpus):
+        calls += write_corpus(db, b"default", series, t, now)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - w0
+    points = (len(corpus) + len(plan_corpus)) * len(t)
+    now["t"] = int(t[-1]) - int(t[-1]) % BLOCK_NS + BLOCK_NS + 11 * MINUTE_NS
+    s0 = time.perf_counter()
+    sealed = db.tick()["sealed"]
+    torch.cuda.synchronize()
+    print(f"storage (b) write: {calls} tagged write_batch calls, {points} "
+          f"points in {write_s:.3f}s host clock ({points / write_s:.1f} "
+          f"datapoints/s); seal of {sealed} blocks in "
+          f"{time.perf_counter() - s0:.3f}s")
+    check(sealed == 16, f"tick sealed {sealed} blocks, expected 16")
+    storage = LocalStorage(db, b"default")
+    card = Engine(storage)
+    start, end = int(t[30]), int(t[-1])
+    q0 = time.perf_counter()
+    out = {}
+    for q in QUERIES:
+        tq = time.perf_counter()
+        blk = card.execute_range(q, start, end, STEP_NS)
+        blk.values
+        torch.cuda.synchronize()
+        out[q] = (blk, time.perf_counter() - tq)
+    query_s = time.perf_counter() - q0
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    want = sum("_over_time" in q for q in QUERIES)
+    phase(f"storage (b): {len(QUERIES)} queries over LocalStorage on the card "
+          f"in {query_s:.3f}s, launches {launches}; block cache "
+          f"{block_cache.get_cache().stats()}")
+    check(launches["window"] == want, f"window kernel launched "
+          f"{launches['window']} times, expected {want}")
+    for q in QUERIES:
+        blk, secs = out[q]
+        ref = card_out[q][0]
+        got, exp = np.asarray(blk.values), np.asarray(ref.values)
+        check([x.id() for x in blk.series_tags]
+              == [x.id() for x in ref.series_tags], f"{q}: tags differ")
+        check(got.shape == exp.shape and bool(
+            (np.isnan(got) == np.isnan(exp)).all()), f"{q}: NaN cells differ")
+        check(bool(np.allclose(got, exp, rtol=1e-5, atol=1e-8,
+                               equal_nan=True)), f"{q}: values differ")
+        print(f"stored query {q!r}: {got.shape}, card {secs:.4f}s, DictStorage "
+              f"card {card_out[q][1]:.4f}s, identical "
+              f"{bool(np.array_equal(got, exp, equal_nan=True))}")
+    phase("storage (b): every query over LocalStorage equals the DictStorage "
+          "answer")
+    _fetch_split(db, t)
+    _breakdown(card, storage, t, card_out, " LocalStorage")
+    with _instrumented({}) as pair:
+        for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])"):
+            card.execute_range(q, start, end, STEP_NS).values
+    print(f"pair through Engine.execute_range LocalStorage, traced: "
+          f"{pair['wall'] * 1e3:.3f} ms; {_split_text(pair)}")
+    db.close()
+    return launches
+
+
+def _fetch_split(db, t) -> None:
+    """Host clock of one bench_metric fetch through LocalStorage, split
+    into the index query and the per-series shard reads (block cache
+    hits once the blocks are admitted)."""
+    from m3_tpu_torch.query import promql
+    from m3_tpu_torch.query.model import matchers_to_index_query
+    from m3_tpu_torch.storage import block_cache
+
+    start, end = int(t[30]), int(t[-1])
+    lo = start - 10 * STEP_NS
+    sel = promql.parse("rate(bench_metric[5m])").args[0]
+    cache = block_cache.get_cache()
+    before = cache.stats()
+    f0 = time.perf_counter()
+    ids = db.query_ids(b"default", matchers_to_index_query(
+        promql.selector_matchers(sel)), lo, end + 1)
+    f1 = time.perf_counter()
+    ns = db.namespace(b"default")
+    for sid in ids:
+        ns.shards[db.shard_set.lookup(sid)].read(sid, lo, end + 1)
+    f2 = time.perf_counter()
+    after = cache.stats()
+    print(f"LocalStorage fetch of bench_metric: index query {len(ids)} ids "
+          f"{(f1 - f0) * 1e3:.3f} ms, {len(ids)} shard reads "
+          f"{(f2 - f1) * 1e3:.3f} ms ({(f2 - f1) / max(1, len(ids)) * 1e6:.2f} "
+          f"us each); cache hits +{after['hits'] - before['hits']}, misses "
+          f"+{after['misses'] - before['misses']}, admissions "
+          f"+{after['admitted'] - before['admitted']}")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

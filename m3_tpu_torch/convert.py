@@ -5,7 +5,8 @@ The reference keeps 64-bit values as (hi, lo) uint32 pairs and words as
 uint32; the port keeps int64 and int32 bit patterns. These helpers move
 the reference's host arrays (numpy; JAX arrays convert with np.asarray)
 onto a device in the port's layout, and the port's tensors back to numpy
-in the reference's dtypes."""
+in the reference's dtypes. Sealed blocks cross both ways: a block sealed
+by one package reads back identically in the other."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from .parallel.ingest import IngestBatch, RawIngestBatch
+from .storage.block import SealedBlock
+from .utils import xtime
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -61,3 +64,43 @@ def raw_batch_to_torch(raw, device) -> RawIngestBatch:
     v = np.ascontiguousarray(np.asarray(raw.v_pairs, np.uint32)).view(np.float64)[..., 0]
     return RawIngestBatch(_t(ts, np.int64, device), _t(v, np.float64, device),
                           _t(raw.npoints, np.int32, device))
+
+
+def _boundary_copy(boundary):
+    if boundary is None:
+        return None
+    return {k: np.array(v, copy=True) for k, v in boundary.items()}
+
+
+def sealed_block_to_torch(ref_blk, device) -> SealedBlock:
+    """The reference's SealedBlock (numpy words u32 [S, MW], nbits,
+    npoints, series_indices, window, time_unit, boundary) -> the port's,
+    reading and decoding on `device`. The streams are the same bits: the
+    port's blocks keep the reference's host layout."""
+    return SealedBlock(
+        block_start=int(ref_blk.block_start),
+        window=int(ref_blk.window),
+        series_indices=np.array(ref_blk.series_indices, np.int32),
+        words=np.array(ref_blk.words, np.uint32),
+        nbits=np.array(ref_blk.nbits, np.int32),
+        npoints=np.array(ref_blk.npoints, np.int32),
+        time_unit=xtime.Unit(int(ref_blk.time_unit)),
+        checksum=int(ref_blk.checksum),
+        boundary=_boundary_copy(ref_blk.boundary),
+        device=device)
+
+
+def sealed_block_to_numpy(blk: SealedBlock) -> dict:
+    """The port's SealedBlock -> the keyword arguments of the reference's
+    SealedBlock, numpy in its dtypes (time_unit as the unit's integer
+    value, which both packages' xtime.Unit share)."""
+    return dict(
+        block_start=int(blk.block_start),
+        window=int(blk.window),
+        series_indices=np.array(blk.series_indices, np.int32),
+        words=np.array(blk.words, np.uint32),
+        nbits=np.array(blk.nbits, np.int32),
+        npoints=np.array(blk.npoints, np.int32),
+        time_unit=int(blk.time_unit),
+        checksum=int(blk.checksum),
+        boundary=_boundary_copy(blk.boundary))

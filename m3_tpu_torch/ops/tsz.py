@@ -485,6 +485,19 @@ def encode(timestamps, values, npoints=None, max_words: int | None = None, *,
     return words, nbits
 
 
+def encode_with_boundary(timestamps, values, npoints=None,
+                         max_words: int | None = None, *, device=None):
+    """encode() that also returns the boundary metadata dict (seal path)."""
+    ts = np.asarray(timestamps)
+    if npoints is None:
+        npoints = np.full(ts.shape[0], ts.shape[1], dtype=np.int32)
+    if max_words is None:
+        max_words = max_words_for(ts.shape[1])
+    inp = prepare_encode_inputs(ts, values, npoints)
+    words, nbits = encode_prepared(inp, max_words, device=device)
+    return words, nbits, boundary_metadata(inp)
+
+
 def boundary_metadata(inp: dict) -> dict:
     """Seal-time boundary metadata from prepared encode inputs (numpy):
     what the concat merge needs to append a later block without decoding

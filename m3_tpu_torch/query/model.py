@@ -2,15 +2,14 @@
 src/query/models/{tags,matchers}.go — prom-style label sets and the four
 matcher kinds =, !=, =~, !~).
 
-Host copy of m3_tpu/query/model.py. matchers_to_index_query, which
-compiles matchers for the inverted index, comes with the port's index."""
+Host copy of m3_tpu/query/model.py."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
 import re
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 METRIC_NAME = b"__name__"
 
@@ -88,3 +87,25 @@ class Tags:
             for k, v in self.pairs if k != METRIC_NAME)
         return f"{name}{{{rest}}}"
 
+
+def matchers_to_index_query(matchers: Sequence[Matcher]):
+    """Compile label matchers to an inverted-index query
+    (query/storage/m3/storage.go FetchOptionsToM3Options ->
+    idx query conversion in storage/index/convert)."""
+    from ..index import query as iq
+
+    parts = []
+    for m in matchers:
+        if m.type == MatchType.EQUAL:
+            parts.append(iq.new_term(m.name, m.value))
+        elif m.type == MatchType.NOT_EQUAL:
+            parts.append(iq.new_negation(iq.new_term(m.name, m.value)))
+        elif m.type == MatchType.REGEXP:
+            parts.append(iq.new_regexp(m.name, m.value))
+        else:
+            parts.append(iq.new_negation(iq.new_regexp(m.name, m.value)))
+    if not parts:
+        return iq.AllQuery()
+    if len(parts) == 1:
+        return parts[0]
+    return iq.new_conjunction(*parts)

@@ -10,7 +10,8 @@ prometheus_ids draws series IDs shaped like Prometheus label sets.
 For the query path: hostile_residuals draws f32 residual grids for the
 window kernel, window_reorder_bounds gives the per-window tolerance of its
 f32 sums, and promql_corpus builds the reference benchmark's PromQL
-storage (bench.py bench_promql / bench_promql_plan_agg)."""
+storage (bench.py bench_promql / bench_promql_plan_agg). write_corpus
+writes such a corpus into a storage Database in time order."""
 
 from __future__ import annotations
 
@@ -150,3 +151,26 @@ def promql_corpus(n: int, seed: int, hosts: int = 0,
             sid = b"%s{i=%d}" % (metric, i)
         series[sid] = {"tags": tags, "t": t, "v": vals[i]}
     return series, t
+
+
+def write_corpus(db, namespace: bytes, series: dict, t, now: dict,
+                 steps_per_batch: int = 1) -> int:
+    """Write a promql_corpus-shaped {id: {tags, t, v}} dict (every series
+    on the grid `t`) through db.write_batch in time order, with tags,
+    `steps_per_batch` grid steps per call and the database's clock (the
+    dict `now`, key "t") at each call's last timestamp, so every point is
+    inside the acceptance window. Works for any Database with the
+    reference's write_batch signature. Returns the number of calls."""
+    sids = list(series)
+    tags = [series[s]["tags"] for s in sids]
+    vals = np.stack([series[s]["v"] for s in sids], axis=1)  # [T, S]
+    calls = 0
+    for j in range(0, len(t), steps_per_batch):
+        steps = np.asarray(t[j:j + steps_per_batch], np.int64)
+        now["t"] = int(steps[-1])
+        db.write_batch(namespace, sids * len(steps),
+                       np.repeat(steps, len(sids)),
+                       vals[j:j + len(steps)].reshape(-1),
+                       tags=tags * len(steps))
+        calls += 1
+    return calls

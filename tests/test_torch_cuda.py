@@ -10,7 +10,9 @@ equality is exact. The window kernel's count, min, max and last are exact
 too (signed zeros included); its sum and m2 are f32 sums in another order,
 held to the per-window reorder bound of m3_tpu_torch.testing.
 window_reorder_bounds. Engine queries on the card against device="cpu"
-use the oracle tolerance rtol 1e-5, atol 1e-8."""
+use the oracle tolerance rtol 1e-5, atol 1e-8. The storage node's tests
+hold a Database on the card against device="cpu" bit for bit, the seal's
+retained tensors against the budget, and a decode fault to raising."""
 
 import numpy as np
 import pytest
@@ -255,3 +257,100 @@ def test_decode_kernel_takes_a_row_slice(cuda):
         torch.cuda.synchronize()
         for a, b in zip(got, ck.decode_points_plain(words[lo:], npts[lo:], 120)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------- the storage node
+
+_BLOCK = 2 * 3600 * 10**9
+_T0 = (1_700_000_000 * 10**9 // _BLOCK) * _BLOCK
+
+
+def _sealed_db(device, n=300, ppb=24, monkeypatch=None, cache=None):
+    """A 4-shard Database on `device` holding two sealed 2 h blocks of
+    `ppb` points for n series (bench_hot_set_read's build, small)."""
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    now = {"t": _T0}
+    db = Database(ShardSet(4), clock=lambda: now["t"], device=device)
+    db.ensure_namespace(b"bench", NamespaceOptions(
+        index_enabled=False, writes_to_commitlog=False,
+        retention_ns=4 * 86400 * 10**9))
+    ids = [b"hot-%06d" % i for i in range(n)]
+    vals = np.random.default_rng(53).standard_normal((2 * ppb, n))
+    for s in range(2 * ppb):
+        now["t"] = _T0 + s * (_BLOCK // ppb)
+        db.write_batch(b"bench", ids, np.full(n, now["t"], np.int64), vals[s])
+    now["t"] = _T0 + 2 * _BLOCK + 11 * 60 * 10**9
+    assert db.tick()["sealed"] == 8
+    return db, ids
+
+
+@pytest.fixture
+def fresh_cache(monkeypatch):
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.utils.hbm import HBMBudget
+
+    c = block_cache.DeviceBlockCache(budget=HBMBudget(1 << 30), admit_after=2)
+    monkeypatch.setattr(block_cache, "_CACHE", c)
+    monkeypatch.delenv("M3_TPU_BLOCK_CACHE_RETAIN", raising=False)
+    return c
+
+
+def test_seal_retains_cuda_tensors_charged_and_released(cuda, fresh_cache):
+    """A seal on the card hands its word tensors to the cache: CUDA int32
+    tensors, charged at numel * element_size while the block lives and
+    released on close."""
+    ck.reset_launch_counts()
+    db, _ = _sealed_db(cuda)
+    assert ck.launch_counts()["hash"] == 48 and ck.launch_counts()["pack"] == 8
+    charged = 0
+    for shard in db.namespace(b"bench").shards.values():
+        for blk in shard.blocks.values():
+            words, npoints = fresh_cache.encoded(blk)
+            assert words.is_cuda and words.dtype == torch.int32
+            assert words.shape[0] >= blk.num_series
+            charged += words.numel() * 4 + npoints.numel() * 4
+    assert fresh_cache.stats()["retained"] == 8
+    assert fresh_cache.budget.total() == charged > 0
+    db.close()
+    assert fresh_cache.budget.total() == 0 and len(fresh_cache) == 0
+
+
+def test_read_all_on_card_equals_cpu(cuda, fresh_cache):
+    """Every sealed block and every read on the card equals device="cpu"
+    bit for bit, cold and through the cache."""
+    gpu, ids = _sealed_db(cuda)
+    cpu, _ = _sealed_db("cpu")
+    for sh, shard in gpu.namespace(b"bench").shards.items():
+        other = cpu.namespace(b"bench").shards[sh]
+        for bs, blk in shard.blocks.items():
+            ref = other.blocks[bs]
+            assert (blk.words == ref.words).all()
+            for _ in range(3):
+                for a, b in zip(blk.read_all(), ref.read_all()):
+                    assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    for sid in ids[:40]:
+        a = gpu.read(b"bench", sid, _T0, _T0 + 2 * _BLOCK)
+        b = cpu.read(b"bench", sid, _T0, _T0 + 2 * _BLOCK)
+        assert a[0].tobytes() == b[0].tobytes()
+        assert a[1].tobytes() == b[1].tobytes()
+
+
+def test_decode_fault_on_card_raises(cuda, fresh_cache, monkeypatch):
+    """No fallback on the path: when the decode kernel faults, a read
+    raises instead of running a host decoder."""
+    db, ids = _sealed_db(cuda, n=40)
+
+    class Faulty:
+        def __getattr__(self, name):
+            def fault(*args):
+                raise RuntimeError("injected kernel fault")
+            return fault
+
+    monkeypatch.setattr(ck, "build", lambda: Faulty())
+    with pytest.raises(RuntimeError, match="injected kernel fault"):
+        db.read(b"bench", ids[0], _T0, _T0 + 2 * _BLOCK)
+    blk = next(iter(db.namespace(b"bench").shards[0].blocks.values()))
+    with pytest.raises(RuntimeError, match="injected kernel fault"):
+        blk.read_all()

@@ -41,12 +41,33 @@ for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])",
     blk = Engine(DictStorage(series), device="cpu").execute_range(
         q, int(t[30]), int(t[-1]), 30 * 10**9)
     ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
+
+from m3_tpu_torch.query.storage import LocalStorage
+from m3_tpu_torch.storage.database import Database
+from m3_tpu_torch.testing import write_corpus
+
+now = {"t": int(t[0])}
+db = Database(ShardSet(4), clock=lambda: now["t"], device="cpu")
+db.ensure_namespace(b"default")
+write_corpus(db, b"default", series, t, now, steps_per_batch=30)
+now["t"] = int(t[-1]) + 3 * 3600 * 10**9
+ok = ok and db.tick()["sealed"] > 0
+sid = next(iter(series))
+rt, rv = db.read(b"default", sid, int(t[0]), int(t[-1]) + 1)
+ok = ok and (rt == t).all() and (rv == series[sid]["v"]).all()
+blk = Engine(LocalStorage(db, b"default"), device="cpu").execute_range(
+    "rate(bench_metric[5m])", int(t[30]), int(t[-1]), 30 * 10**9)
+ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
+db.close()
+
 torch.cuda.is_available = lambda: False
-try:
-    Engine(DictStorage(series))
-    ok = False
-except RuntimeError:
-    pass
+for make in (lambda: Engine(DictStorage(series)),
+             lambda: Database(ShardSet(4))):
+    try:
+        make()
+        ok = False
+    except RuntimeError:
+        pass
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "m3_tpu"
               or m.startswith("m3_tpu."))
@@ -55,9 +76,10 @@ print(json.dumps({"ok": bool(ok), "mods": mods}))
 
 
 def test_port_slice_imports_neither_jax_nor_m3_tpu():
-    """The ingest slice and a few Engine queries in a fresh process; the
-    Engine also refuses to start without a card unless asked for the
-    CPU."""
+    """The ingest slice, a few Engine queries, and the storage path (write,
+    tick, read and a LocalStorage query) in a fresh process; the Engine
+    and the Database also refuse to start without a card unless asked for
+    the CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -75,7 +97,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from m3_tpu_torch.ops import series_agg, temporal
     from m3_tpu_torch.query.executor import Engine
     from m3_tpu_torch.testing import DictStorage
+    from m3_tpu_torch.client.decode import decode_tile
+    from m3_tpu_torch.storage.block import SealedBlock, encode_block
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.shard import Shard, ShardOptions
     from m3_tpu_torch.utils import hashing
+    from m3_tpu_torch.utils.hbm import HBMBudget
 
     ts, vals, npts = ingest.make_example_raw(4, 12, np.random.default_rng(0))
     calls = [
@@ -92,6 +119,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: temporal.rate(vals, 4, 10, 40),
         lambda: temporal.over_time(vals, 4, "sum"),
         lambda: series_agg.grouped_reduce(vals, np.zeros(4, int), 1, "sum"),
+        lambda: Database(ShardSet(4)),
+        lambda: Shard(0, ShardOptions()),
+        lambda: encode_block(0, np.arange(4, dtype=np.int32), ts, vals, npts),
+        lambda: SealedBlock(0, 8, np.zeros(1, np.int32),
+                            np.zeros((1, 8), np.uint32), np.zeros(1, np.int32),
+                            np.ones(1, np.int32)),
+        lambda: decode_tile(np.zeros((4, 8), np.uint32), npts, 12, 4),
+        lambda: HBMBudget(1 << 20).device_put(vals),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
