@@ -67,9 +67,33 @@ Phases (each synchronises the device and fails the run on any error):
               Engine(DictStorage) answers (same tags and order, same NaN
               cells, rtol 1e-5, atol 1e-8), the window kernel launched;
               then the rate + sum_over_time breakdown over LocalStorage
+  8. flush    the storage node's flush merge and the compute-fault guard.
+              (a) bench_flush_merge at its full size (BASELINE config #5):
+              make_example_raw(100,000, 120, seed 17) split into two
+              half-blocks of 60 points, both sealed (the pack kernel),
+              merged by merge_adjacent (the scan-free concat on the
+              eligible rows, decode + re-encode on the rest: the decode
+              and pack kernels), the merged words decoded back (the decode
+              kernel); every series must decode to the raw points, int-mode
+              concat rows must equal a direct encode of the full window,
+              and 2,000 concat rows and 2,000 recode rows must equal the
+              same strategy on the CPU word for word; the merge's time
+              (CUDA events) split into concat, recode and the host
+              partition. (b) each shard's two sealed blocks of phase 7 (a)
+              merged by merge_sealed_blocks to window 256; every merged
+              block's read_all equals the two source blocks' reads side by
+              side, bit for bit. (c) the guard on the card: a seeded
+              campaign of all five fault kinds over codec.encode,
+              codec.decode, codec.hash, block.decode and temporal.over_time
+              (every call the exact clean answer or a typed ComputeError),
+              a breaker trip (dispatches then raise at once) and its
+              half-open recovery, and one real CUDA out-of-memory error
+              inside a guarded primary, reclaimed by reclaim_pass and
+              retried to the exact answer
 
-Every kernel's launches are counted per path (slice, query, storage),
-each count set to 0 just before its path is driven and read just after.
+Every kernel's launches are counted per path (slice, query, storage,
+flush), each count set to 0 just before its path is driven and read just
+after.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -415,8 +439,16 @@ def main() -> int:
         by_path[name]["query"] = query_launches[name]
 
     # -- 7. the storage node: write -> seal -> read, PromQL from it ---------
-    for name, n in _storage_phase(corpus, plan_corpus, t_q, card_out).items():
+    storage_launches, block_pairs = _storage_phase(corpus, plan_corpus, t_q,
+                                                   card_out)
+    for name, n in storage_launches.items():
         by_path[name]["storage"] = n
+
+    # -- 8. the flush merge and the compute-fault guard --------------------
+    for name, n in _flush_phase(block_pairs).items():
+        by_path[name]["flush"] = n
+    del block_pairs
+    _guard_phase()
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -747,21 +779,49 @@ def _breakdown(card, storage, t, card_out, label: str = "") -> None:
             f"{n} {x * 1e3:.3f} ms" for n, x in zip(names, d))
             + f"; total {d.sum() * 1e3:.3f} ms")
     for which, eng in (("grid cache warm", card), ("cold", Engine(storage))):
-        t0 = time.perf_counter()
-        blocks = [eng.execute_range(q, start, end, STEP_NS)
-                  for q in ("rate(bench_metric[5m])",
-                            "sum_over_time(bench_metric[5m])")]
-        for blk in blocks:
-            blk.values
-        torch.cuda.synchronize()
+        with _gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            blocks = [eng.execute_range(q, start, end, STEP_NS)
+                      for q in ("rate(bench_metric[5m])",
+                                "sum_over_time(bench_metric[5m])")]
+            for blk in blocks:
+                blk.values
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         print(f"pair through Engine.execute_range{label}, {which}: "
-              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+              f"{ms:.3f} ms; full GC pauses inside, ms: {pauses}")
 
 
-def _storage_phase(corpus, plan_corpus, t, card_out) -> dict:
+@contextlib.contextmanager
+def _gc_pauses():
+    """The durations (ms) of the full (generation 2) garbage collections
+    that ran inside the block: a single timed run of a Python-bound step
+    can hold one, and it can cost a fifth of the step."""
+    import gc
+
+    pauses, began = [], {}
+
+    def note(stage, info):
+        if info["generation"] != 2:
+            return
+        if stage == "start":
+            began["t"] = time.perf_counter()
+        elif "t" in began:
+            pauses.append(round((time.perf_counter() - began.pop("t")) * 1e3,
+                                3))
+
+    gc.callbacks.append(note)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(note)
+
+
+def _storage_phase(corpus, plan_corpus, t, card_out):
     """Phase 7: the storage node on the card. Returns each kernel's
     launches over the phase's two paths (the counts set to 0 before each
-    and read after)."""
+    and read after), and each shard's pair of sealed blocks of (a) for
+    phase 8's merge."""
     import torch
 
     from m3_tpu_torch.ops import codec_kernels as ck
@@ -785,6 +845,8 @@ def _storage_phase(corpus, plan_corpus, t, card_out) -> dict:
           f"{hot['sealed']} seals")
     check(launches["decode"] > 0, "the decode kernel did not launch")
     _check_sealed_planes(db)
+    pairs = [tuple(blk for _, blk in sorted(shard.blocks.items()))
+             for shard in db.namespace(b"bench").shards.values()]
     db.close()
     check(block_cache.get_cache().budget.total() == 0,
           "the closed database left bytes charged to the budget")
@@ -797,7 +859,7 @@ def _storage_phase(corpus, plan_corpus, t, card_out) -> dict:
     query_launches = _stored_promql(corpus, plan_corpus, t, card_out)
     for name, n in query_launches.items():
         launches[name] += n
-    return launches
+    return launches, pairs
 
 
 def _write_seal_read():
@@ -993,6 +1055,10 @@ def _sealed_blocks(db):
             yield shard, bs, blk
 
 
+ENCODE_KEYS = ("dt", "t0", "v", "int_mode", "k", "npoints", "ts_regular",
+               "delta0")
+
+
 def _check_storage_kernels(db) -> None:
     """The kernels at the storage path's shapes against their plain
     versions on the card, before any read: the pack of one seal's chunks
@@ -1013,9 +1079,7 @@ def _check_storage_kernels(db) -> None:
     pad = np.arange(sp) % s
     inp = tsz.prepare_encode_inputs(
         ts[pad] // blk.time_unit.nanos, vals[pad], npts[pad])
-    chunks = tsz.encode_chunks(**{k: inp[k] for k in (
-        "dt", "t0", "v", "int_mode", "k", "npoints", "ts_regular",
-        "delta0")})
+    chunks = tsz.encode_chunks(**{k: inp[k] for k in ENCODE_KEYS})
     mw = words.shape[1]
     got = ck.pack_chunks(*chunks, mw)
     want = ck.pack_chunks_plain(*chunks, mw)
@@ -1182,6 +1246,529 @@ def _fetch_split(db, t) -> None:
           f"us each); cache hits +{after['hits'] - before['hits']}, misses "
           f"+{after['misses'] - before['misses']}, admissions "
           f"+{after['admitted'] - before['admitted']}")
+
+
+# bench_flush_merge's shard (BASELINE config #5): two half-blocks of 60
+# points per series, seed 17; CPU samples of each merge strategy.
+FLUSH_SERIES, FLUSH_HALF, FLUSH_SEED = 100_000, 60, 17
+FLUSH_SAMPLE, FLUSH_ITERS = 2_000, 5
+# The guard campaign: rows of its card inputs, its plan's seed and rates,
+# rounds over the five routes.
+GUARD_ROWS, GUARD_SEED, GUARD_ROUNDS = 2_048, 23, 16
+GUARD_RATES = dict(compile_fail=0.1, dispatch_raise=0.15, oom=0.1,
+                   delay=0.1, corrupt=0.15, delay_s=0.3)
+GUARD_TIMEOUT_S, GUARD_COOLDOWN_S = 0.25, 1000.0
+GUARD_OVERHEAD_CALLS = 20_000
+
+
+def _flush_phase(pairs) -> dict:
+    """Phase 8 (a) and (b). Returns each kernel's launches over the two
+    merge paths (the counts set to 0 before each and read after)."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    launches = dict.fromkeys(REPLACES, 0)
+    for path in (_flush_merge, lambda: _merge_stored(pairs)):
+        ck.reset_launch_counts()
+        wk.window_stat.launches = 0
+        torch.cuda.synchronize()
+        counts = dict(path(), window=wk.window_stat.launches)
+        for name, n in counts.items():
+            launches[name] += n
+    check(launches["pack"] > 0 and launches["decode"] > 0,
+          f"a kernel of the flush path did not launch: {launches}")
+    return launches
+
+
+def _half_inputs(full, raw_ts, lo, half):
+    """bench_flush_merge's half-block encode inputs: one column range of
+    the full block's prepared inputs (so both halves keep the full
+    block's encoding epoch), its first delta zeroed."""
+    n = raw_ts.shape[0]
+    dt = full["dt"][:, lo:lo + half].copy()
+    dt[:, 0] = 0
+    return dict(dt=dt, t0=raw_ts[:, lo].copy(), v=full["v"][:, lo:lo + half],
+                int_mode=full["int_mode"], k=full["k"],
+                npoints=np.full(n, half, np.int32),
+                ts_regular=(dt[:, 1:] == dt[:, 1:2]).all(axis=1),
+                delta0=dt[:, 1].copy())
+
+
+def _flush_merge() -> dict:
+    """Phase 8 (a): bench_flush_merge on the card through the entry
+    points (seal both halves, merge_adjacent, decode), then its checks and
+    the timing split. Returns the main path's launches."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import tsz, tsz_concat
+    from m3_tpu_torch.parallel import ingest
+
+    dev = torch.device("cuda")
+    n, half = FLUSH_SERIES, FLUSH_HALF
+    w = 2 * half
+    raw_ts, raw_vals, npoints = ingest.make_example_raw(
+        n, w, np.random.default_rng(FLUSH_SEED))
+    full = tsz.prepare_encode_inputs(raw_ts, raw_vals, npoints)
+    h1 = _half_inputs(full, raw_ts, 0, half)
+    h2 = _half_inputs(full, raw_ts, half, half)
+    meta = tsz.boundary_metadata(h1)
+    mw_half, mw_full = tsz.max_words_for(half), tsz.max_words_for(w)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    last_v = put(meta["last_v_bits"].view(np.int64))
+    last_vd = put(meta["last_vdelta_bits"].view(np.int64))
+    boundary = put((raw_ts[:, half] - raw_ts[:, half - 1]).astype(np.int32))
+    npts_half = torch.full((n,), half, dtype=torch.int32, device=dev)
+    kw = dict(half_window=half, max_words=mw_full)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    steps = [time.perf_counter()]
+    w1, nb1 = tsz.encode_prepared(h1, mw_half, device=dev)
+    w2, nb2 = tsz.encode_prepared(h2, mw_half, device=dev)
+    torch.cuda.synchronize()
+    steps.append(time.perf_counter())
+    args = (w1, nb1, npts_half, w2, nb2, npts_half, boundary, last_v, last_vd)
+    merged, mnb = tsz_concat.merge_adjacent(*args, **kw)
+    torch.cuda.synchronize()
+    steps.append(time.perf_counter())
+    dts, dvals = tsz.decode(merged, torch.full_like(npts_half, w), w,
+                            device=dev)
+    torch.cuda.synchronize()
+    steps.append(time.perf_counter())
+    launches = ck.launch_counts()
+    seal_s, merge_s, decode_s = np.diff(steps)
+    phase(f"flush (a): {n} series x {w} points: seal of both halves "
+          f"{seal_s:.3f}s, merge_adjacent {merge_s:.3f}s, decode "
+          f"{decode_s:.3f}s host clock (first calls), launches {launches}")
+    check(torch.equal(dts.cpu(), torch.from_numpy(raw_ts)),
+          "flush: merged timestamps differ from the raw block")
+    check(torch.equal(dvals.cpu().view(torch.int64),
+                      torch.from_numpy(raw_vals.view(np.int64))),
+          "flush: merged values differ from the raw block bit for bit")
+    del dts, dvals
+    # K1 at the half-block seal's shape and K2 at the merged block's,
+    # each against its plain version on the same inputs (launched after
+    # the path's counts were read: these do not count).
+    chunks = tsz.encode_chunks(**{k: h1[k] for k in ENCODE_KEYS},
+                               device=dev)
+    got = ck.pack_chunks(*chunks, mw_half)
+    check(torch.equal(got, ck.pack_chunks_plain(*chunks, mw_half))
+          and torch.equal(got, w1), "flush: pack kernel differs from its "
+          "plain version at the half-block seal's shape")
+    npts_full = torch.full_like(npts_half, w)
+    got = ck.decode_points(merged, npts_full, w)
+    want = ck.decode_points_plain(merged, npts_full, w)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"flush: decode kernel differs from its plain version at "
+          f"{list(merged.shape)}, window {w}")
+    del chunks, got, want
+    phase(f"flush (a): pack at [{n}, {2 * half}] slots (the half-block "
+          f"seal) and decode at {list(merged.shape)}, window {w}, equal "
+          f"their plain versions bit for bit")
+
+    hd1, hd2 = tsz_concat.parse_header(w1), tsz_concat.parse_header(w2)
+    ok = tsz_concat.concat_eligible(hd1, hd2, npts_half, npts_half,
+                                    boundary).cpu().numpy()
+    fast, slow = np.flatnonzero(ok), np.flatnonzero(~ok)
+    check(fast.size > 0 and slow.size > 0, f"flush: eligible {fast.size}/{n}")
+    ref_w, ref_nb = tsz.encode_prepared(full, mw_full, device=dev)
+    int_fast = torch.from_numpy(fast[full["int_mode"][fast]]).to(dev)
+    check(int_fast.numel() > 0, "flush: no int-mode concat rows")
+    check(torch.equal(merged[int_fast], ref_w[int_fast])
+          and torch.equal(mnb[int_fast], ref_nb[int_fast]),
+          "flush: int-mode concat rows differ from a direct encode of the "
+          "full window")
+    del ref_w, ref_nb
+    rng = np.random.default_rng(FLUSH_SEED)
+    for strategy, rows in (("concat", fast), ("recode", slow)):
+        pick = np.sort(rng.choice(rows, min(FLUSH_SAMPLE, rows.size),
+                                  replace=False))
+        idx = torch.from_numpy(pick).to(dev)
+        cw, cnb = tsz_concat.merge_adjacent(
+            *(a[idx].cpu() for a in args), strategy=strategy, device="cpu",
+            **kw)
+        check(torch.equal(merged[idx].cpu(), cw)
+              and torch.equal(mnb[idx].cpu(), cnb),
+              f"flush: the card's {strategy} rows differ from the CPU's")
+    phase(f"flush (a): every series decodes to the raw points; "
+          f"{int_fast.numel()} int-mode concat rows equal a direct encode; "
+          f"{min(FLUSH_SAMPLE, fast.size)} concat and "
+          f"{min(FLUSH_SAMPLE, slow.size)} recode rows equal the CPU's")
+
+    fast_t = torch.from_numpy(fast).to(dev)
+    slow_t = torch.from_numpy(slow).to(dev)
+    fa = [a[fast_t] for a in (w1, nb1, npts_half, w2, nb2, npts_half, last_v,
+                              last_vd)]
+    sa = [a[slow_t] for a in (w1, npts_half, w2, npts_half, boundary)]
+
+    def partition():
+        p1, p2 = tsz_concat.parse_header(w1), tsz_concat.parse_header(w2)
+        e = tsz_concat.concat_eligible(p1, p2, npts_half, npts_half,
+                                       boundary).cpu()
+        return torch.nonzero(e)
+
+    merge_ms = cuda_ms(lambda: tsz_concat.merge_adjacent(*args, **kw),
+                       FLUSH_ITERS)
+    concat_ms = cuda_ms(lambda: tsz_concat.concat_regular_batch(
+        *fa, max_words=mw_full), FLUSH_ITERS)
+    recode_ms = cuda_ms(lambda: tsz_concat._merge_by_recode(
+        *sa, half_window=half, max_words=mw_full), FLUSH_ITERS)
+    partition_ms = cuda_ms(partition, FLUSH_ITERS)
+    tail = torch.nn.functional.pad(fa[3].to(torch.int64) & 0xFFFFFFFF,
+                                   (0, mw_full - mw_half))
+    shift = torch.randint(0, 32 * mw_half, (fast.size,), device=dev)
+    place_ms = cuda_ms(lambda: tsz_concat._place_at(tail, shift, mw_full + 8),
+                       FLUSH_ITERS)
+    with _instrumented(MERGE_STEPS) as prof:
+        tsz_concat.merge_adjacent(*args, **kw)
+    print(f"flush merge, one merge_adjacent traced: {prof['wall'] * 1e3!r} "
+          f"ms host clock; {_split_text(prof)}")
+    # The concat's least time: both half-blocks' words, nbits, npoints
+    # and metadata read once, the merged words and nbits written once.
+    concat_bytes = fast.size * (2 * mw_half * 4 + 4 * 4 + 2 * 8
+                                + mw_full * 4 + 4)
+    print(f"flush merge: eligible {fast.size}/{n} "
+          f"({fast.size / n!r}); merge_adjacent {merge_ms!r} ms "
+          f"({n * w / (merge_ms / 1e3)!r} datapoints/s): concat of "
+          f"{fast.size} rows {concat_ms!r} ms (bytes bound "
+          f"{concat_bytes / HBM_BYTES_PER_S * 1e3!r} ms), recode of "
+          f"{slow.size} rows "
+          f"{recode_ms!r} ms, host partition (two header parses, "
+          f"eligibility, D2H) {partition_ms!r} ms; one _place_at (gather "
+          f"form) over [{fast.size}, {mw_full + 8}] {place_ms!r} ms; CUDA "
+          f"events, {FLUSH_ITERS} calls each")
+    return launches
+
+
+def _merge_stored(pairs) -> dict:
+    """Phase 8 (b): each shard's two sealed blocks of phase 7 (a) merged
+    by merge_sealed_blocks on the card, then read back through read_all
+    (the decode kernel at window 256). Returns the path's launches."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import tsz_concat
+    from m3_tpu_torch.storage.block import merge_sealed_blocks
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    secs = []
+    with _instrumented(MERGE_STEPS) as prof:
+        merged = []
+        for b1, b2 in pairs:
+            m0 = time.perf_counter()
+            merged.append(merge_sealed_blocks(b1, b2))
+            secs.append(time.perf_counter() - m0)
+    r0 = time.perf_counter()
+    reads = [m.read_all() for m in merged]
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - r0
+    launches = ck.launch_counts()
+    eligible = []
+    for b1, b2 in pairs:
+        h1 = tsz_concat.parse_header(b1.words, device=b1.device)
+        h2 = tsz_concat.parse_header(b2.words, device=b1.device)
+        gap = (h2["t0"].cpu().numpy()
+               - b1.boundary["last_ticks"]).astype(np.int32)
+        eligible.append(int(tsz_concat.concat_eligible(
+            h1, h2, b1.npoints, b2.npoints, gap).sum()))
+    print(f"storage merge: {len(pairs)} merges of [{pairs[0][0].num_series}, "
+          f"{pairs[0][0].words.shape[1]}] + [{pairs[0][1].num_series}, "
+          f"{pairs[0][1].words.shape[1]}] words to window "
+          f"{merged[0].window}, [{merged[0].num_series}, "
+          f"{merged[0].words.shape[1]}]: {[round(x * 1e3, 3) for x in secs]} "
+          f"ms each (host clock, ends in the D2H), mean "
+          f"{float(np.mean(secs)) * 1e3!r} ms; concat rows {eligible}, recode rows "
+          f"{[b1.num_series - e for (b1, _), e in zip(pairs, eligible)]}; "
+          f"{_split_text(prof)}; read_all of the merged blocks "
+          f"{read_s:.3f}s; launches {launches}")
+    for (b1, b2), m, (tm, vm, nm) in zip(pairs, merged, reads):
+        check(m.window == b1.window + b2.window == 256
+              and m.words.shape[1] == 947, f"merged geometry {m.window}, "
+              f"{m.words.shape}")
+        check(bool((m.series_indices == b1.series_indices).all()
+                   and (m.series_indices == b2.series_indices).all()),
+              "merged series differ from the source blocks'")
+        t1, v1, n1 = b1.read_all()
+        t2, v2, n2 = b2.read_all()
+        check(bool((nm == n1 + n2).all()), "merged npoints differ")
+        j = np.arange(m.window)[None, :]
+        from1 = j < n1[:, None]
+        idx2 = np.clip(j - n1[:, None], 0, b2.window - 1)
+        rows = np.arange(m.num_series)[:, None]
+        live = j < (n1 + n2)[:, None]
+        pad = ((0, 0), (0, m.window - b1.window))
+        for got, a, b in ((tm, t1, t2), (vm.view(np.int64), v1.view(np.int64),
+                                         v2.view(np.int64))):
+            want = np.where(from1, np.pad(a, pad), b[rows, idx2])
+            check(bool((got[live] == want[live]).all()),
+                  f"merged block {m.block_start} reads back differently")
+    # K2 at the merged block's read shape (rows padded to a power of two
+    # as read_all pads them, window 256) against its plain version.
+    m = merged[0]
+    sp = 1 << (m.num_series - 1).bit_length()
+    pad = np.arange(sp) % m.num_series
+    words = torch.from_numpy(m.words[pad].view(np.int32)).cuda()
+    npts = torch.from_numpy(m.npoints[pad].astype(np.int32)).cuda()
+    got = ck.decode_points(words, npts, m.window)
+    want = ck.decode_points_plain(words, npts, m.window)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"flush (b): decode kernel differs from its plain version at "
+          f"{list(words.shape)}, window {m.window}")
+    phase(f"flush (b): all {len(merged)} merged blocks read back equal to "
+          f"their two source blocks, bit for bit; decode at "
+          f"{list(words.shape)}, window {m.window}, equals its plain version")
+    return launches
+
+
+MERGE_STEPS = {
+    "merge_adjacent": ("ops/tsz_concat.py", "merge_adjacent"),
+    "of which header parses": ("ops/tsz_concat.py", "parse_header"),
+    "of which concat enqueue": ("ops/tsz_concat.py", "concat_regular_batch"),
+    "of which recode": ("ops/tsz_concat.py", "_merge_by_recode"),
+    "of which recode's chunk build": ("ops/tsz.py", "encode_chunks"),
+    "D2H (waits for the merge)": _D2H,
+}
+
+
+def _same(a, b) -> bool:
+    """Bit equality of two results: tensors, arrays, tuples and dicts."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype and a.device
+                == b.device and bool((a.cpu().numpy().tobytes()
+                                      == b.cpu().numpy().tobytes())))
+    return np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def _guard_phase() -> None:
+    """Phase 8 (c): the compute-fault guard on the card."""
+    import torch
+
+    from m3_tpu_torch.ops import temporal, tsz
+    from m3_tpu_torch.parallel import guard, ingest
+    from m3_tpu_torch.storage import block as sblock
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.testing import faultcomp, prometheus_ids
+    from m3_tpu_torch.utils import hashing
+    from m3_tpu_torch.utils.retry import Breaker, BreakerOptions
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(GUARD_SEED)
+    n, w = GUARD_ROWS, W
+    ts, vals, npts = ingest.make_example_raw(n, w, rng)
+    prep = tsz.prepare_encode_inputs(ts, vals, npts)
+    mw = tsz.max_words_for(w)
+    words, _ = tsz.encode_prepared(prep, mw, device=dev)
+    npts_t = torch.from_numpy(npts).to(dev)
+    ids = prometheus_ids(n, rng)
+    grid = np.cumsum(rng.poisson(5.0, (n, w)), axis=1).astype(np.float64)
+    grid[rng.random(grid.shape) < 0.05] = np.nan
+    blk = sblock.encode_block(0, np.arange(n, dtype=np.int32),
+                              ts * 10**9, vals, npts, device=dev)
+
+    def block_decode():
+        with block_cache.disabled():
+            return blk.read_all()
+
+    calls = {
+        "codec.encode": lambda: tsz.encode_prepared(prep, mw, device=dev),
+        "codec.decode": lambda: tsz.decode_plane(words, npts_t, window=w,
+                                                 device=dev),
+        "codec.hash": lambda: hashing.hash_batch(ids, device=dev),
+        "block.decode": block_decode,
+        "temporal.over_time": lambda: temporal.over_time(grid, 10, "max",
+                                                         device=dev),
+    }
+    clean = {route: call() for route, call in calls.items()}
+    torch.cuda.synchronize()
+
+    # What a clean dispatch adds to a call (no seam installed: the lock,
+    # the breaker grant and settle, the telemetry counts), on the host
+    # clock against the bare call of the same no-op primary.
+    def noop():
+        return None
+
+    reps = GUARD_OVERHEAD_CALLS
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        noop()
+    bare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        guard.dispatch("guard.overhead", noop)
+    guarded_s = time.perf_counter() - t0
+    print(f"guard: a clean dispatch adds {(guarded_s - bare_s) / reps * 1e6!r}"
+          f" us host clock ({reps} dispatches of a no-op primary in "
+          f"{guarded_s!r} s, bare calls {bare_s!r} s)")
+
+    # The breakers' clock: the real one plus an offset the campaign moves
+    # past the cooldown between rounds, so an open breaker half-opens at a
+    # round boundary whatever the card's speed; the timeout stays real.
+    offset = [0.0]
+    clock = lambda: time.monotonic() + offset[0]  # noqa: E731
+    opts = BreakerOptions(window=8, failure_ratio=0.5, min_samples=4,
+                          cooldown_s=GUARD_COOLDOWN_S)
+    guard.reset()
+    for route in calls:
+        guard.configure(route, opts=opts, clock=clock,
+                        timeout_s=GUARD_TIMEOUT_S)
+    plan = faultcomp.ComputeFaultPlan(seed=GUARD_SEED, **GUARD_RATES)
+    outcomes = {route: {"exact": 0} for route in calls}
+    g0 = time.perf_counter()
+    with faultcomp.injected(plan) as seam:
+        for _ in range(GUARD_ROUNDS):
+            for route, call in calls.items():
+                # Every outcome must be the one the decisions drawn during
+                # the call imply: a real fault of the card would be a raise
+                # the schedule does not explain.
+                mark = seam.mark()
+                try:
+                    out = call()
+                except guard.ComputeError as err:
+                    bad = faultcomp.unexplained(seam.since(mark), err)
+                    check(bad is None, f"guard: {route}: {bad}")
+                    key = ("BreakerOpen" if err.detail == "breaker open"
+                           else type(err).__name__)
+                    outcomes[route][key] = outcomes[route].get(key, 0) + 1
+                    continue
+                torch.cuda.synchronize()
+                bad = faultcomp.unexplained(seam.since(mark), None)
+                check(bad is None, f"guard: {route}: {bad}")
+                check(_same(out, clean[route]),
+                      f"guard: {route} returned a corrupted answer")
+                outcomes[route]["exact"] += 1
+            offset[0] += GUARD_COOLDOWN_S + 1
+    kinds = {}
+    for decisions in seam.decisions.values():
+        for d in decisions:
+            kinds[d] = kinds.get(d, 0) + 1
+    print(f"guard campaign: {GUARD_ROUNDS} rounds over {sorted(calls)} in "
+          f"{time.perf_counter() - g0:.3f}s; injected {kinds}; outcomes "
+          f"{outcomes}")
+    check(all(kinds.get(k, 0) > 0 for k in (
+        "compile_fail", "dispatch_raise", "oom", "delay", "corrupt")),
+        f"guard: the campaign did not inject every kind: {kinds}")
+    check(all(o["exact"] > 0 and len(o) > 1 for o in outcomes.values()),
+          f"guard: a route never answered or never raised: {outcomes}")
+    snap = guard.debug_snapshot()
+    for route in sorted(snap):
+        print(f"guard route {route}: {snap[route]}")
+
+    # A breaker trip: dispatches raise at once (the seam sees none of
+    # them), and after the cooldown the half-open probe closes it again.
+    guard.configure("codec.decode", opts=opts, clock=clock)
+    with faultcomp.injected(faultcomp.ComputeFaultPlan(
+            seed=GUARD_SEED, dispatch_raise=1.0)) as seam:
+        for _ in range(opts.min_samples):
+            try:
+                calls["codec.decode"]()
+                check(False, "guard: an injected fault returned")
+            except guard.KernelFault:
+                pass
+    check(guard.debug_snapshot()["codec.decode"]["state"] == Breaker.OPEN,
+          "guard: the breaker did not trip")
+    with faultcomp.injected(faultcomp.ComputeFaultPlan(seed=0)) as benign:
+        try:
+            calls["codec.decode"]()
+            check(False, "guard: an open breaker let a dispatch through")
+        except guard.ComputeError as err:
+            check("breaker open" in str(err), f"guard: {err}")
+        check(not benign.decisions, "guard: an open breaker reached the seam")
+        offset[0] += GUARD_COOLDOWN_S + 1
+        check(_same(calls["codec.decode"](), clean["codec.decode"]),
+              "guard: the half-open probe's answer differs")
+    check(guard.debug_snapshot()["codec.decode"]["state"]
+          == Breaker.CLOSED,
+          "guard: the half-open probe did not close the breaker")
+    phase(f"guard (c): campaign exact-or-typed on {len(calls)} routes; "
+          f"breaker tripped after {len(seam.decisions['codec.decode'])} "
+          f"faults, raised at once while open, closed by the half-open probe")
+    _real_oom(words, npts_t, w, clean["codec.decode"])
+    guard.reset()
+
+
+def _real_oom(words, npts, w, want) -> None:
+    """One real CUDA out-of-memory error inside a guarded primary: a
+    ballast tensor fills all but 2 GiB of the card's free memory, charged
+    to no ledger (a budget tenant reporting 0 bytes, so reclaim() frees
+    nothing), and the primary asks for 4 GiB of scratch before it
+    decodes. The guard must type the error DeviceOOM, free the ballast
+    through reclaim_pass, and retry once to the exact answer."""
+    import torch
+
+    from m3_tpu_torch.ops import tsz
+    from m3_tpu_torch.parallel import guard
+    from m3_tpu_torch.utils import hbm
+    from m3_tpu_torch.utils.instrument import ROOT
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    ballast = {"t": torch.empty(free - (2 << 30), dtype=torch.uint8,
+                                device="cuda")}
+
+    def evict():
+        t = ballast.pop("t", None)
+        if t is None:
+            return 0
+        n = t.numel()
+        del t
+        torch.cuda.empty_cache()
+        return n
+
+    budget = hbm.shared_budget()
+    passes = []
+    real_pass = budget.reclaim_pass
+
+    def counted_pass():
+        passes.append(1)
+        return real_pass()
+
+    budget.reclaim_pass = counted_pass
+    budget.register("chip-smoke-ballast", lambda: 0, evict)
+    attempts = []
+
+    def primary():
+        attempts.append(1)
+        scratch = torch.empty(4 << 30, dtype=torch.uint8, device="cuda")
+        out = tsz.decode_plane(words, npts, window=w, device=words.device)
+        del scratch
+        return out
+
+    before = ROOT.snapshot()
+    try:
+        guard.configure("block.decode")
+        got = guard.dispatch("block.decode", primary)
+        torch.cuda.synchronize()
+    finally:
+        budget.unregister("chip-smoke-ballast")
+        del budget.reclaim_pass
+        ballast.clear()
+    after = ROOT.snapshot()
+    oom_key = "telemetry.compute.faults{kind=oom,route=block.decode}"
+    reclaims = "telemetry.compute.oom_reclaims{route=block.decode}"
+    freed = (after.get("telemetry.compute.oom_reclaimed_bytes", 0)
+             - before.get("telemetry.compute.oom_reclaimed_bytes", 0))
+    check(len(attempts) == 2 and len(passes) == 1
+          and after.get(oom_key, 0) - before.get(oom_key, 0) == 1
+          and after.get(reclaims, 0) - before.get(reclaims, 0) == 1,
+          f"guard: the real OOM was not reclaimed and retried once "
+          f"(attempts {len(attempts)}, passes {len(passes)})")
+    check(_same(got, want), "guard: the retried decode's answer differs")
+    phase(f"guard (c): a real CUDA out-of-memory error ({free} bytes free, "
+          f"ballast of {free - (2 << 30)}) typed DeviceOOM, reclaim_pass "
+          f"freed {freed} bytes, the retry returned the exact answer")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

@@ -48,6 +48,24 @@ def i32_to_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(I64) & M32
 
 
+def shl32(x: torch.Tensor, s) -> torch.Tensor:
+    """Logical left shift of u32 words held in int64 [0, 2^32), kept to
+    32 bits; s >= 32 (or s < 0) yields 0, as the reference's _shl32 does.
+    Explicit, not left to the hardware: an int32 shift by 32 is masked to
+    a shift by 0 on CUDA."""
+    s = torch.as_tensor(s, dtype=I64, device=x.device)
+    out = (x << s.clamp(0, 31)) & M32
+    return torch.where((s < 0) | (s >= 32), 0, out)
+
+
+def shr32(x: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of u32 words held in int64 [0, 2^32); s >= 32
+    (or s < 0) yields 0, as the reference's _shr32 does."""
+    s = torch.as_tensor(s, dtype=I64, device=x.device)
+    out = x >> s.clamp(0, 31)
+    return torch.where((s < 0) | (s >= 32), 0, out)
+
+
 # ---------------------------------------------------------------------------
 # logical shifts (shift counts outside [0, 63] give 0, as in the reference)
 # ---------------------------------------------------------------------------

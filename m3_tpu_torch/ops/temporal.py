@@ -20,16 +20,24 @@ moments run through K4 (ops/window_kernels.py) on the card.
 
 Every public function takes `device` (None = the CUDA device, see
 device.resolve); results come back to the host as numpy f64, once per
-query, through the fetch closures of the *_async forms."""
+query, through the fetch closures of the *_async forms.
+
+The device functions are built by cached builders under
+`guard.guarded_builder` (routes temporal.rate, temporal.last_two_idx,
+temporal.over_time, temporal.over_time_finish): every call dispatches
+through the compute-fault guard, which raises a typed ComputeError on a
+fault and never falls back."""
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve
+from ..parallel import guard
 from . import window_kernels
 
 F32 = torch.float32
@@ -141,6 +149,16 @@ def rate_math(adj, finite, grid32=None, *, W, step_s, range_s, is_counter,
     return torch.where(ok & (sampled > 0), out, float("nan"))
 
 
+@guard.guarded_builder("temporal.rate")
+@functools.lru_cache(maxsize=256)
+def _rate_fn(W: int, step_s: float, range_s: float, is_counter: bool,
+             is_rate: bool, stride: int = 1):
+    """rate_math for one static (window, step, range, kind, stride)."""
+    return functools.partial(rate_math, W=W, step_s=step_s, range_s=range_s,
+                             is_counter=is_counter, is_rate=is_rate,
+                             stride=stride)
+
+
 def _host_diff_grid(grid: np.ndarray, is_counter: bool):
     """f64 host pass: per-cell adjusted diff vs the previous valid sample.
     adj[i] = v[i] - prev_valid (or v[i] itself at a counter reset, promql's
@@ -182,8 +200,8 @@ def _extrapolated_async(grid: np.ndarray, W: int, step_ns: int, range_ns: int,
     dev = resolve(device)
     arrs = [_put(a, dev) if a is not None else None
             for a in rate_inputs(grid, is_counter)]
-    out = rate_math(*arrs, W=W, step_s=step_ns / 1e9, range_s=range_ns / 1e9,
-                    is_counter=is_counter, is_rate=is_rate, stride=stride)
+    out = _rate_fn(W, step_ns / 1e9, range_ns / 1e9, is_counter, is_rate,
+                   stride)(*arrs)
     return lambda: _fetch(out)
 
 
@@ -217,14 +235,20 @@ def delta_async(grid, W, step_ns, range_ns, stride=1, device=None):
                                stride, device)
 
 
-def _last_two_idx_fn(finite, W: int, stride: int = 1):
+@guard.guarded_builder("temporal.last_two_idx")
+@functools.lru_cache(maxsize=256)
+def _last_two_idx_fn(W: int, stride: int = 1):
     """irate/idelta index pass: last two valid window indices, [2, S,
     T_out] (-1 where missing)."""
-    mvol = _window_volume(finite, W, stride)
-    Wr = torch.arange(W, device=finite.device)
-    last_i = torch.where(mvol, Wr, -1).amax(-1)
-    prev_i = torch.where(mvol & (Wr < last_i[..., None]), Wr, -1).amax(-1)
-    return torch.stack([last_i, prev_i])
+
+    def fn(finite):
+        mvol = _window_volume(finite, W, stride)
+        Wr = torch.arange(W, device=finite.device)
+        last_i = torch.where(mvol, Wr, -1).amax(-1)
+        prev_i = torch.where(mvol & (Wr < last_i[..., None]), Wr, -1).amax(-1)
+        return torch.stack([last_i, prev_i])
+
+    return fn
 
 
 def _instant(grid: np.ndarray, W: int, step_ns: int, is_rate: bool,
@@ -234,7 +258,7 @@ def _instant(grid: np.ndarray, W: int, step_ns: int, is_rate: bool,
     gathered from the f64 grid by device-computed indices."""
     dev = resolve(device)
     finite = np.isfinite(grid)
-    packed = _last_two_idx_fn(_put(finite, dev), W, stride).cpu().numpy()
+    packed = _last_two_idx_fn(W, stride)(_put(finite, dev)).cpu().numpy()
     last_i, prev_i = packed[0], packed[1]
     ok = prev_i >= 0
     S, T_out = last_i.shape
@@ -309,6 +333,21 @@ def over_time_math(resid, base32, *, W: int, kind: str, stride: int = 1):
     return torch.where(cnt > 0, out, float("nan")).to(F32)
 
 
+@guard.guarded_builder("temporal.over_time")
+@functools.lru_cache(maxsize=256)
+def _over_time_fn(W: int, stat: str, stride: int = 1):
+    """One masked window moment for *_over_time: (stat, count) f32
+    planes at the output stride (K4 on the card)."""
+    return lambda resid: _window_stat_strided(resid, W, stat, stride)
+
+
+@guard.guarded_builder("temporal.over_time_finish")
+@functools.lru_cache(maxsize=256)
+def _over_time_finish_fn(W: int, kind: str, stride: int = 1):
+    """The fully-finished *_over_time on the device: one f32 plane."""
+    return functools.partial(over_time_math, W=W, kind=kind, stride=stride)
+
+
 # A result grid this big finishes on the device and ships one f32 plane;
 # smaller grids keep the exact f64 host finish. The reference's threshold
 # (M3_TPU_F32_RESULT_MIN_CELLS's default), so both choose alike.
@@ -336,10 +375,10 @@ def over_time_async(grid: np.ndarray, W: int, kind: str, stride: int = 1,
     resid, base = center(grid)
     resid_dev = _put(resid, dev)
     if finish == "device":
-        out = over_time_math(resid_dev, _put(base.astype(np.float32), dev),
-                             W=W, kind=kind, stride=stride)
+        out = _over_time_finish_fn(W, kind, stride)(
+            resid_dev, _put(base.astype(np.float32), dev))
         return lambda: _fetch(out)
-    stat_dev, cnt_dev = _window_stat_strided(resid_dev, W, stat_name, stride)
+    stat_dev, cnt_dev = _over_time_fn(W, stat_name, stride)(resid_dev)
 
     def fetch() -> np.ndarray:
         stat = _fetch(stat_dev)

@@ -15,6 +15,10 @@ Decode: the header parse and point scan is the decode kernel
 (ops/codec_kernels.decode_points); decode_plane adds the tick scaling,
 the exact int -> f64 conversion and the /10^k finish on the device.
 
+Both kernels dispatch through the compute-fault guard (parallel/guard,
+routes codec.encode and codec.decode): a fault on the card raises a typed
+ComputeError; nothing falls back to the plain versions.
+
 Representation (see ops/bits64.py): 64-bit values (timestamps, f64 bits,
 int-mode mantissas) are int64; packed words are int32 tensors holding the
 u32 bit pattern, [N, max_words] as in the reference. Where the reference
@@ -31,6 +35,7 @@ import torch
 from . import bits64 as b64
 from . import codec_kernels
 from ..device import resolve
+from ..parallel import guard
 
 I32 = torch.int32
 I64 = torch.int64
@@ -248,7 +253,10 @@ def encode_batch(dt, t0, v, int_mode, k, npoints, ts_regular=None,
     """
     c0, c1, c2, snb = encode_chunks(dt, t0, v, int_mode, k, npoints,
                                     ts_regular, delta0, device=device)
-    words = codec_kernels.pack_chunks(c0, c1, c2, snb, max_words)
+    # The pack kernel through the compute-fault guard (route
+    # codec.encode): a fault on the card raises typed, never falls back.
+    words = guard.dispatch("codec.encode", lambda: codec_kernels.pack_chunks(
+        c0, c1, c2, snb, max_words))
     return words, snb.sum(dim=1, dtype=I32)
 
 
@@ -526,7 +534,10 @@ def boundary_metadata(inp: dict) -> dict:
 
 
 def _decode_core(words, npoints, window: int) -> dict:
-    dt, ticks, v, flags = codec_kernels.decode_points(words, npoints, window)
+    # The decode kernel through the compute-fault guard (codec.decode).
+    dt, ticks, v, flags = guard.dispatch(
+        "codec.decode",
+        lambda: codec_kernels.decode_points(words, npoints, window))
     return {"dt": dt, "ts": ticks, "v": v, "int_mode": (flags >> 7) == 1,
             "k": (flags >> 4) & 7, "t0": ticks[:, 0]}
 

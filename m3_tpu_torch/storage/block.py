@@ -11,9 +11,11 @@ access slices a row.
 The block's streams live on the host as numpy (the reference's layout,
 bit-identical to its words); `device` is where the block was sealed and
 where its reads decode: the pack kernel at seal time, the decode kernel
-at read time. A decode fault on the card raises; nothing falls back to
-a host decoder. Not ported yet: `merge_sealed_blocks` (the time-adjacent
-compaction through the scan-free concat) and the shard x time mesh seal."""
+at read time. A decode fault on the card raises (typed, through the
+compute-fault guard's block.decode route); nothing falls back to a host
+decoder. `merge_sealed_blocks` compacts two time-adjacent blocks through
+the scan-free concat (ops/tsz_concat). Not ported yet: the shard x time
+mesh seal."""
 
 from __future__ import annotations
 
@@ -213,10 +215,19 @@ class SealedBlock:
 def _dispatch_decode(words, npoints, window: int, unit_nanos: int, device):
     """The block plane decode on `device` (tsz.decode_plane: the decode
     kernel on the card, its plain version on the CPU) -> host numpy
-    (ts_ns int64, vals f64). A fault raises."""
-    ts, vals = tsz.decode_plane(words, npoints, window=window,
-                                unit_nanos=unit_nanos, device=device)
-    return ts.cpu().numpy(), vals.cpu().numpy()
+    (ts_ns int64, vals f64), through the compute-fault guard (route
+    block.decode; the decode kernel inside is guarded again as
+    codec.decode). The primary ends in the D2H copy, so the guard's
+    timeout sees the whole decode. A fault raises a typed ComputeError:
+    there is no host decoder to fall back to."""
+    from ..parallel import guard
+
+    def _device():
+        ts, vals = tsz.decode_plane(words, npoints, window=window,
+                                    unit_nanos=unit_nanos, device=device)
+        return ts.cpu().numpy(), vals.cpu().numpy()
+
+    return guard.dispatch("block.decode", _device)
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -321,6 +332,130 @@ def _encode_runs(block_start: int, union, runs, w: int, device) -> SealedBlock:
             vs[i, tt.size:] = vv[-1]
     return encode_block(block_start, union.astype(np.int32), ts, vs, npts,
                         device=device)
+
+
+def merge_sealed_blocks(b1: SealedBlock, b2: SealedBlock) -> SealedBlock:
+    """Compact two time-adjacent sealed blocks into one (block compaction;
+    the reference's fs merge re-encodes point streams; here series present
+    in both blocks take the scan-free concat when eligible, see
+    ops/tsz_concat.py). b2 must start at or after b1's window end. The
+    merge runs on b1's device: the concat on the card, a recode on the
+    CPU (merge_adjacent's "auto").
+
+    Series in only one input copy through untouched. Requires b1's
+    seal-time boundary metadata and a shared time unit; otherwise both
+    blocks are decoded and re-encoded wholesale. The result is a new
+    block (a new generation: block-cache keys of the inputs never reach
+    it)."""
+    from ..ops import tsz_concat
+
+    if b1.block_start >= b2.block_start:
+        raise ValueError("merge_sealed_blocks: blocks must be time-ordered")
+    if b1.boundary is None or b1.time_unit != b2.time_unit:
+        return _merge_by_full_recode(b1, b2)
+
+    dev = b1.device
+    window = b1.window + b2.window
+    max_words = tsz.max_words_for(window)
+    union = np.union1d(b1.series_indices, b2.series_indices)
+    r1 = np.searchsorted(b1.series_indices, union)
+    r2 = np.searchsorted(b2.series_indices, union)
+    in1 = (r1 < len(b1.series_indices)) & \
+        (b1.series_indices[np.minimum(r1, len(b1.series_indices) - 1)] == union)
+    in2 = (r2 < len(b2.series_indices)) & \
+        (b2.series_indices[np.minimum(r2, len(b2.series_indices) - 1)] == union)
+
+    words = np.zeros((len(union), max_words), np.uint32)
+    nbits = np.zeros(len(union), np.int32)
+    npoints = np.zeros(len(union), np.int32)
+
+    only1 = in1 & ~in2
+    only2 = ~in1 & in2
+    for only, blk, rows in ((only1, b1, r1), (only2, b2, r2)):
+        src = rows[only]
+        w = blk.words[src]
+        words[only, :w.shape[1]] = w[:, :max_words]
+        nbits[only] = blk.nbits[src]
+        npoints[only] = blk.npoints[src]
+
+    both = in1 & in2
+    same_epoch = np.ones(len(union), bool)
+    if both.any():
+        i1, i2 = r1[both], r2[both]
+        # One upload of each side's words serves the header parses here
+        # and the merge.
+        w1 = tsz._as(b1.words[i1], torch.int32, dev)
+        w2 = tsz._as(b2.words[i2], torch.int32, dev)
+        h1 = tsz_concat.parse_header(w1)
+        h2 = tsz_concat.parse_header(w2)
+        t0_2 = h2["t0"].cpu().numpy()
+        gap = t0_2 - b1.boundary["last_ticks"][i1]
+        if (np.abs(gap) >= 2**31).any():
+            # The DoD payload is 32-bit: a gap this wide cannot be encoded
+            # in one stream at this time unit (prepare_encode_inputs raises
+            # the same way on the ingest path).
+            raise ValueError(
+                "merge_sealed_blocks: inter-block gap exceeds int32 ticks")
+        boundary_dt = gap.astype(np.int32)
+        stale = ~b1.boundary.get(
+            "valid", np.ones(len(b1.series_indices), bool))[i1]
+        last_v = b1.boundary["last_v_bits"][i1].view(np.int64)
+        mw, mnb = tsz_concat.merge_adjacent(
+            w1, b1.nbits[i1], b1.npoints[i1],
+            w2, b2.nbits[i2], b2.npoints[i2], boundary_dt,
+            last_v, b1.boundary["last_vdelta_bits"][i1].view(np.int64),
+            half_window=max(b1.window, b2.window), max_words=max_words,
+            force_recode=stale, device=dev)
+        words[both] = mw.cpu().numpy().view(np.uint32)
+        nbits[both] = mnb.cpu().numpy()
+        npoints[both] = b1.npoints[i1] + b2.npoints[i2]
+        im2 = h2["int_mode"].cpu().numpy()
+        same_epoch[both] = ((h1["int_mode"] == h2["int_mode"])
+                            & (h1["k"] == h2["k"])).cpu().numpy()
+        # When b2 contributed exactly ONE point, b2's sealed
+        # last_vdelta_bits is 0 (there is no intra-b2 value delta), but the
+        # MERGED stream's final value-delta is m2[0] - m1[last], the
+        # boundary delta the merge just encoded. Copying b2's 0 would make
+        # a later concat of the compacted block encode the next
+        # double-delta against 0 while the decoder's previous-delta
+        # register holds the true delta, silently corrupting values.
+        # Recompute it from b1's seal metadata where trustworthy; rows with
+        # stale b1 metadata go to the recode path of the NEXT merge.
+        single2 = b2.npoints[i2] < 2
+        with np.errstate(over="ignore"):
+            fixed_vdelta = np.where(
+                im2, (h2["v0"].cpu().numpy() - last_v).view(np.uint64),
+                np.uint64(0))
+        vdelta_trusted = ~stale & single2
+
+    boundary2 = None
+    if b2.boundary is not None:
+        boundary2 = {}
+        for key in ("last_ticks", "last_v_bits", "last_vdelta_bits"):
+            col = np.zeros(len(union), b2.boundary[key].dtype)
+            col[in2] = b2.boundary[key][r2[in2]]
+            col[only1] = b1.boundary[key][r1[only1]]
+            boundary2[key] = col
+        valid = np.zeros(len(union), bool)
+        valid[in2] = b2.boundary.get(
+            "valid", np.ones(len(b2.series_indices), bool))[r2[in2]]
+        valid[only1] = b1.boundary.get(
+            "valid", np.ones(len(b1.series_indices), bool))[r1[only1]]
+        # Epoch-mismatched rows were re-encoded with fresh mode detection:
+        # b2's stream-space metadata no longer describes the merged stream.
+        valid &= same_epoch
+        if both.any():
+            u_both = np.flatnonzero(both)
+            boundary2["last_vdelta_bits"][u_both[vdelta_trusted]] = \
+                fixed_vdelta[vdelta_trusted]
+            valid[u_both[single2 & stale]] = False
+        boundary2["valid"] = valid
+
+    return SealedBlock(
+        block_start=b1.block_start, window=window,
+        series_indices=union.astype(np.int32), words=words, nbits=nbits,
+        npoints=npoints, time_unit=b1.time_unit, boundary=boundary2,
+        device=dev)
 
 
 def _merge_by_full_recode(b1: SealedBlock, b2: SealedBlock) -> SealedBlock:

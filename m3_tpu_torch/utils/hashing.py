@@ -4,7 +4,8 @@ reference: src/dbnode/sharding/shardset.go, murmur3.Sum32(id) % numShards).
 `murmur3_32` is the scalar pure-Python version for control-plane rates;
 `hash_batch` hashes many IDs at once through the hash kernel
 (ops/codec_kernels.hash_words) over a padded little-endian u32 buffer
-built on the host."""
+built on the host, dispatched through the compute-fault guard (route
+codec.hash): a fault on the card raises typed."""
 
 from __future__ import annotations
 
@@ -76,8 +77,11 @@ def hash_batch(ids: Sequence[bytes], seed: int = 0, *, device=None) -> torch.Ten
     dev = resolve(device)
     if len(ids) == 0:
         return torch.zeros(0, dtype=torch.int64, device=dev)
+    from ..parallel import guard
+
     words, lens = pad_ids(ids)
-    h = codec_kernels.hash_words(
-        torch.from_numpy(np.ascontiguousarray(words)).to(dev),
-        torch.from_numpy(lens).to(dev), seed)
+    words_dev = torch.from_numpy(np.ascontiguousarray(words)).to(dev)
+    lens_dev = torch.from_numpy(lens).to(dev)
+    h = guard.dispatch("codec.hash", lambda: codec_kernels.hash_words(
+        words_dev, lens_dev, seed))
     return h.to(torch.int64) & _M32

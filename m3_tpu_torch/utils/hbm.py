@@ -159,6 +159,31 @@ class HBMBudget:
         self._metrics.gauge("saturation").update(self.saturation())
         return freed
 
+    def reclaim_pass(self) -> int:
+        """ONE forced eviction rotation regardless of the tracked total: a
+        device-reported out-of-memory error means the card is out of memory
+        even if the host-side ledger is under budget (fragmentation,
+        untracked scratch, another process), so the compute-fault guard
+        frees one LRU entry per tenant before its single dispatch retry.
+        Returns bytes freed. Same locking contract as reclaim()."""
+        with self._lock:
+            names = list(self._evictors)
+            if not names:
+                return 0
+            start = self._rotation % len(names)
+            self._rotation += 1
+            evictors = [(n, self._evictors[n])
+                        for n in names[start:] + names[:start]]
+        freed = 0
+        for _name, evict in evictors:
+            try:
+                freed += max(0, int(evict()))
+            except Exception:  # noqa: BLE001 — one tenant's failure
+                pass               # must not wedge the OOM retry
+        self._metrics.gauge("bytes").update(self.total())
+        self._metrics.gauge("saturation").update(self.saturation())
+        return freed
+
     # ------------------------------------------------------- transient puts
 
     def _release_transient(self, n: int):

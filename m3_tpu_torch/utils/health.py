@@ -17,9 +17,13 @@ cheapest traffic first, never the traffic that keeps the cluster alive).
 
   HealthTracker   ok -> degraded -> shedding state machine over
                   registered saturation sources (gate depths, enforcer
-                  saturation from utils.limits) with hysteresis, exported
-                  through instrument gauges and the coordinator/aggregator
-                  HTTP health endpoints.
+                  saturation from utils.limits, the HBM budget's
+                  `hbm_pressure`, and parallel/guard's `compute_degraded`:
+                  0.8 while any kernel route's breaker is not closed, so
+                  compute faults read DEGRADED and never shed on their
+                  own) with hysteresis, exported through instrument
+                  gauges and the coordinator/aggregator HTTP health
+                  endpoints.
 """
 
 from __future__ import annotations

@@ -354,3 +354,134 @@ def test_decode_fault_on_card_raises(cuda, fresh_cache, monkeypatch):
     blk = next(iter(db.namespace(b"bench").shards[0].blocks.values()))
     with pytest.raises(RuntimeError, match="injected kernel fault"):
         blk.read_all()
+
+
+# ------------------------------------------- the flush merge and the guard
+
+
+def _flush_halves(n, half, seed, device):
+    """bench_flush_merge's inputs, small: make_example_raw split into two
+    sealed half-blocks (one encoding epoch per series), block1's boundary
+    metadata and the boundary gap."""
+    ts, vals, npts = ingest.make_example_raw(n, 2 * half,
+                                             np.random.default_rng(seed))
+    full = tsz.prepare_encode_inputs(ts, vals, npts)
+    mw = tsz.max_words_for(half)
+    out = []
+    for lo in (0, half):
+        dt = full["dt"][:, lo:lo + half].copy()
+        dt[:, 0] = 0
+        inp = dict(dt=dt, t0=ts[:, lo].copy(), v=full["v"][:, lo:lo + half],
+                   int_mode=full["int_mode"], k=full["k"],
+                   npoints=np.full(n, half, np.int32),
+                   ts_regular=(dt[:, 1:] == dt[:, 1:2]).all(axis=1),
+                   delta0=dt[:, 1].copy())
+        w, nb = tsz.encode_prepared(inp, mw, device=device)
+        out += [w, nb, torch.from_numpy(inp["npoints"]).to(device)]
+        if lo == 0:
+            meta = tsz.boundary_metadata(inp)
+    boundary = (ts[:, half] - ts[:, half - 1]).astype(np.int32)
+    return ts, vals, out, boundary, meta
+
+
+@pytest.mark.parametrize("strategy", ["auto", "concat", "recode"])
+def test_flush_merge_on_card_equals_cpu(cuda, strategy):
+    """merge_adjacent on the card equals the same strategy on the CPU word
+    for word ("auto" is the concat on the card), and decodes to the raw
+    points."""
+    from m3_tpu_torch.ops import tsz_concat
+
+    n, half = 600, 60
+    ts, vals, args, boundary, meta = _flush_halves(n, half, 17, cuda)
+    mw = tsz.max_words_for(2 * half)
+    kw = dict(half_window=half, max_words=mw)
+    meta_v = (meta["last_v_bits"], meta["last_vdelta_bits"])
+    got = tsz_concat.merge_adjacent(*args, boundary, *meta_v,
+                                    strategy=strategy, **kw)
+    cpu_args = [a.cpu() for a in args]
+    want = tsz_concat.merge_adjacent(
+        *cpu_args, boundary, *meta_v, device="cpu",
+        strategy="concat" if strategy == "auto" else strategy, **kw)
+    torch.cuda.synchronize()
+    assert got[0].is_cuda
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    dts, dv = tsz.decode(got[0], np.full(n, 2 * half, np.int32), 2 * half)
+    assert (dts.cpu().numpy() == ts).all()
+    assert (dv.cpu().numpy().view(np.uint64) == vals.view(np.uint64)).all()
+
+
+def test_merge_sealed_blocks_on_card_reads_back(cuda, fresh_cache):
+    """Each shard's two card-sealed blocks merge (the concat) into one
+    block whose read_all equals the two blocks' reads side by side."""
+    from m3_tpu_torch.storage.block import merge_sealed_blocks
+
+    ck.reset_launch_counts()
+    db, _ = _sealed_db(cuda)
+    for shard in db.namespace(b"bench").shards.values():
+        (_, b1), (_, b2) = sorted(shard.blocks.items())
+        t1, v1, n1 = b1.read_all()
+        t2, v2, n2 = b2.read_all()
+        merged = merge_sealed_blocks(b1, b2)
+        assert merged.window == b1.window + b2.window
+        assert merged.boundary["valid"].all()
+        tm, vm, nm = merged.read_all()
+        assert (nm == n1 + n2).all()
+        for r in range(merged.num_series):
+            a, b = int(n1[r]), int(n2[r])
+            assert tm[r, :a + b].tobytes() == np.concatenate(
+                [t1[r, :a], t2[r, :b]]).tobytes()
+            assert vm[r, :a + b].tobytes() == np.concatenate(
+                [v1[r, :a], v2[r, :b]]).tobytes()
+    db.close()
+
+
+def test_injected_decode_fault_on_card_raises_typed(cuda):
+    """No fallback: an injected codec.decode fault on the card raises
+    KernelFault (and never hands back the plain version's answer); an open
+    breaker, a quarantined key and a corrupted output raise typed too."""
+    from m3_tpu_torch.parallel import guard
+    from m3_tpu_torch.testing import faultcomp
+    from m3_tpu_torch.utils.retry import BreakerOptions
+
+    chunks, npts = _chunks(7, 64, 40, cuda)
+    words = ck.pack_chunks(*chunks, tsz.max_words_for(40))
+    plain = []
+    real_plain = ck.decode_points_plain
+
+    def spy(*args):
+        plain.append(1)
+        return real_plain(*args)
+
+    guard.reset()
+    try:
+        ck.decode_points_plain = spy
+        for kind in ("dispatch_raise", "corrupt"):
+            guard.reset()
+            plan = faultcomp.ComputeFaultPlan(seed=0, route_filter="codec.",
+                                              **{kind: 1.0})
+            with faultcomp.injected(plan):
+                with pytest.raises(guard.KernelFault):
+                    tsz.decode_batch(words, npts, window=40)
+        assert plain == []
+        guard.configure("codec.decode", opts=BreakerOptions(
+            window=4, failure_ratio=0.5, min_samples=1, cooldown_s=3600.0))
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=0, dispatch_raise=1.0)):
+            with pytest.raises(guard.KernelFault):
+                tsz.decode_batch(words, npts, window=40)
+        with pytest.raises(guard.ComputeError, match="breaker open"):
+            tsz.decode_batch(words, npts, window=40)
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=0, dispatch_raise=1.0)):
+            with pytest.raises(guard.KernelFault):
+                guard.dispatch("block.decode", lambda: words, key="w")
+        with pytest.raises(guard.KernelFault, match="quarantined"):
+            guard.dispatch("block.decode", lambda: words, key="w")
+        assert plain == []
+    finally:
+        ck.decode_points_plain = real_plain
+        guard.reset()
+    got = tsz.decode_batch(words, npts, window=40)
+    torch.cuda.synchronize()
+    assert torch.equal(got["v"], real_plain(words, npts, 40)[2])

@@ -60,6 +60,25 @@ blk = Engine(LocalStorage(db, b"default"), device="cpu").execute_range(
 ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
 db.close()
 
+from m3_tpu_torch.parallel import guard
+from m3_tpu_torch.storage.block import encode_block, merge_sealed_blocks
+from m3_tpu_torch.testing import faultcomp
+
+bt = 1_600_000_000 * 10**9 + np.arange(8, dtype=np.int64)[None, :] * 10**10
+bv = np.arange(16, dtype=np.float64).reshape(2, 8)
+b1, b2 = (encode_block(k, [3, 4], np.repeat(bt + k * 8 * 10**10, 2, 0), bv,
+                       np.full(2, 8, np.int32), device="cpu") for k in (0, 1))
+merged = merge_sealed_blocks(b1, b2)
+mt, mv = merged.read(4)
+ok = ok and (mv == np.concatenate([bv[1], bv[1]])).all() and len(mt) == 16
+with faultcomp.injected(faultcomp.ComputeFaultPlan(seed=0, corrupt=1.0)):
+    try:
+        merged.read_all()
+        ok = False
+    except guard.KernelFault:
+        pass
+guard.reset()
+
 torch.cuda.is_available = lambda: False
 for make in (lambda: Engine(DictStorage(series)),
              lambda: Database(ShardSet(4))):
@@ -76,10 +95,11 @@ print(json.dumps({"ok": bool(ok), "mods": mods}))
 
 
 def test_port_slice_imports_neither_jax_nor_m3_tpu():
-    """The ingest slice, a few Engine queries, and the storage path (write,
-    tick, read and a LocalStorage query) in a fresh process; the Engine
-    and the Database also refuse to start without a card unless asked for
-    the CPU."""
+    """The ingest slice, a few Engine queries, the storage path (write,
+    tick, read and a LocalStorage query), a block merge and a guarded
+    decode under an injected fault in a fresh process; the Engine and the
+    Database also refuse to start without a card unless asked for the
+    CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
