@@ -37,14 +37,29 @@ Phases (each synchronises the device and fails the run on any error):
   5. small    the same slice on 512 hostile rows, on the card and with
               the plain versions on the CPU: identical results
   6. query    bench_promql's storage (10,000 counters x 360 points at
-              10 s, seed 11) and bench_promql_plan_agg's (10,000 over 200
-              hosts, seed 17) through Engine(storage) on the card and
+              10 s, seed 11), bench_promql_plan_agg's (10,000 over 200
+              hosts, seed 17) and a mixed-sign gauge grid (10,000 series,
+              normal x 10, 20% NaN, seed 13, the same grid) through
+              Engine(storage) on the card and
               Engine(storage, device="cpu"): the rate family,
-              *_over_time, a 5m10s window, a packed subquery and grouped
-              aggregations at step 30 s must agree (same tags and order,
-              same NaN cells, rtol 1e-5, atol 1e-8) and the window kernel
-              must have launched; then a host-clock breakdown of one
-              rate + sum_over_time pair
+              *_over_time, a 5m10s window, a packed subquery, grouped
+              aggregations, and deriv, predict_linear, holt_winters,
+              changes, resets and quantile_over_time over the counters and
+              the gauges (with sum/avg_over_time) at step 30 s must agree:
+              same tags and order, same NaN cells; changes, resets and
+              quantile_over_time equal; deriv within rtol 1e-3, atol 1e-4,
+              predict_linear and holt_winters within rtol 2e-3, atol 1e-2;
+              the other gauge queries within rtol 2e-5, atol
+              max(1e-8, 1e-6 max|ref|) (the reference's own bounds,
+              tests/test_plan_compile.py:170-185); the rest within rtol
+              1e-5, atol 1e-8. The window kernel must have launched once a
+              *_over_time query (quantile_over_time sorts instead); then a
+              host-clock breakdown of one rate + sum_over_time pair, and
+              the pair 5 times warm, 5 times cold (new grids of known
+              content: a content-hash hit) and 5 times missing (new
+              content each run) (medians, full GC pauses set apart,
+              derived-input cache hits and misses, the host clock spent
+              hashing, in host prep and in H2D)
   7. storage  the storage node's write -> seal -> read path on the card.
               (a) bench_hot_set_read's build at the north star's series
               count: 100,000 series in Database(ShardSet(4)) (index and
@@ -60,13 +75,13 @@ Phases (each synchronises the device and fails the run on any error):
               same reads with the cache bypassed; read_all of every block
               equals the written planes bit for bit; the budget's total
               beside torch.cuda.memory_allocated().
-              (b) the query phase's two corpora written through
+              (b) the query phase's three corpora written through
               write_batch with tags into Database(ShardSet(16)) with the
-              namespace index, sealed, and the 18 queries through
-              Engine(LocalStorage(db)) on the card: equal to phase 6's
-              Engine(DictStorage) answers (same tags and order, same NaN
-              cells, rtol 1e-5, atol 1e-8), the window kernel launched;
-              then the rate + sum_over_time breakdown over LocalStorage
+              namespace index, sealed, and phase 6's queries through
+              Engine(LocalStorage(db)) on the card:
+              equal to phase 6's Engine(DictStorage) answers under phase
+              6's bounds, the window kernel launched; then the rate +
+              sum_over_time breakdown and pair runs over LocalStorage
   8. flush    the storage node's flush merge and the compute-fault guard.
               (a) bench_flush_merge at its full size (BASELINE config #5):
               make_example_raw(100,000, 120, seed 17) split into two
@@ -90,10 +105,26 @@ Phases (each synchronises the device and fails the run on any error):
               half-open recovery, and one real CUDA out-of-memory error
               inside a guarded primary, reclaimed by reclaim_pass and
               retried to the exact answer
+  9. graphite (a) 10,000 carbon series (bench.host{0..199}.metric{0..49},
+              360 points at 10 s, seed 29, positive levels) written with
+              their __gN__ tags through Database(ShardSet(16)) with the
+              namespace index (the hash kernel once a write_batch) and
+              sealed (the pack kernel once a block); moving{Average,Sum,
+              Max,Min,Median}, stdev, sumSeries, groupByNode, perSecond,
+              summarize and highestCurrent rendered through
+              GraphiteEngine(LocalStorage(db)) on the card (cold reads
+              through the decode kernel, moving* and stdev through the
+              window kernel) equal the device="cpu" renders over the same
+              store: same names and order, same NaN cells, rtol 1e-5,
+              atol 1e-8. (b) the opt-in query placement (QueryPlacement,
+              the reference's "auto"): the probe's
+              RTT and D2H bandwidth, choose() at four grid sizes, and the
+              decisions over 20 repeat rate evaluations at bench_promql's
+              shape, each answer equal to that of the side that served it
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush), each count set to 0 just before its path is driven and read just
-after.
+flush, graphite), each count set to 0 just before its path is driven and
+read just after.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -102,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -127,7 +159,7 @@ HOT_READS, HOT_FRAC, HOT_WEIGHT, WARM_PASSES = 2_000, 0.05, 0.9, 3
 BLOCK_NS, MINUTE_NS = 2 * 3600 * 10**9, 60 * 10**9
 SHARD_ROWS = 100_000                     # the hostile window grid's rows
 STEP_NS = 30_000_000_000
-QUERIES = (
+QUERIES = tuple(
     [f"{f}(bench_metric[5m])" for f in ("rate", "increase", "irate", "delta")]
     + [f"{k}_over_time(bench_metric[5m])" for k in (
         "sum", "avg", "min", "max", "count", "last", "stddev", "stdvar",
@@ -137,6 +169,41 @@ QUERIES = (
        "sum by (host) (rate(bench_requests[5m]))",
        "max by (host) (rate(bench_requests[5m]))",
        "topk(5, rate(bench_requests[5m]))"])
+# The range functions of the query path's last slice, over the counters
+# and over a mixed-sign gauge grid (10,000 series, normal x 10, 20% NaN,
+# seed GAUGE_SEED, on the counters' 360-point grid) with the summed kinds.
+SIX = ("deriv({x}[5m])", "predict_linear({x}[5m], 600)",
+       "holt_winters({x}[5m], 0.3, 0.6)", "changes({x}[5m])",
+       "resets({x}[5m])", "quantile_over_time(0.9, {x}[5m])")
+QUERIES += tuple(q.format(x="bench_metric") for q in SIX)
+GAUGE_QUERIES = tuple(q.format(x="bench_gauge") for q in SIX + (
+    "sum_over_time({x}[5m])", "avg_over_time({x}[5m])"))
+ALL_QUERIES = QUERIES + GAUGE_QUERIES
+GAUGE_SEED = 13
+# Card-against-CPU bounds. changes, resets and quantile_over_time compare
+# and index the same f32 residuals: equal. The regression family and
+# holt_winters: the reference's family bounds, and mixed-sign gauges its
+# scale-aware bound for windows that cancel (tests/test_plan_compile.py:
+# 170-185). Everything else: rtol 1e-5, atol 1e-8 (bench.py:441-446).
+EXACT = ("changes(", "resets(", "quantile_over_time(")
+FAMILY_TOL = {"deriv": dict(rtol=1e-3, atol=1e-4),
+              "predict_linear": dict(rtol=2e-3, atol=1e-2),
+              "holt_winters": dict(rtol=2e-3, atol=1e-2)}
+PAIR_RUNS = 5
+# Start offsets, in steps, of the miss pair runs: each run takes a new one.
+_MISS_SHIFTS = itertools.count(1)
+# The query path's input caches, tenants of the same shared budget as the
+# block cache (ops/temporal.py): not the database's bytes.
+QUERY_CACHE_TENANTS = ("upload", "derived", "derived_id")
+# The steps of a query pair that _instrumented times (cProfile).
+QUERY_STEPS = {
+    "fetch (dict)": ("testing/__init__.py", "fetch_raw"),
+    "fetch (store)": ("query/storage.py", "fetch_raw"),
+    "grid cache + consolidate": ("query/executor.py", "_consolidate_cached"),
+    "derived inputs": ("ops/temporal.py", "_derived"),
+    "tag strip": ("query/executor.py", "_strip_name"),
+    "result fetch": ("query/executor.py", "observed_fetch"),
+}
 EPS = 1.2e-7  # 2^-23
 
 
@@ -246,8 +313,9 @@ def main() -> int:
         from m3_tpu_torch.ops import tsz
         from m3_tpu_torch.parallel import ingest
         from m3_tpu_torch.parallel.sharding import ShardSet
-        from m3_tpu_torch.testing import (hostile_block, hostile_residuals,
-                                          prometheus_ids, promql_corpus)
+        from m3_tpu_torch.testing import (gauge_corpus, hostile_block,
+                                          hostile_residuals, prometheus_ids,
+                                          promql_corpus)
         from m3_tpu_torch.utils.hashing import pad_ids
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
@@ -433,14 +501,16 @@ def main() -> int:
     # -- 6. the query path, through Engine.execute_range --------------------
     plan_corpus, _ = promql_corpus(Q_SERIES, 17, hosts=Q_HOSTS,
                                    metric=b"bench_requests")
-    query_launches, card_out = _query_phase(corpus, plan_corpus, t_q)
+    gauges, _ = gauge_corpus(Q_SERIES, GAUGE_SEED)
+    query_launches, card_out = _query_phase(corpus, plan_corpus, gauges, t_q)
     by_path = {name: {"slice": launches.get(name, 0)} for name in REPLACES}
     for name in REPLACES:
         by_path[name]["query"] = query_launches[name]
 
     # -- 7. the storage node: write -> seal -> read, PromQL from it ---------
-    storage_launches, block_pairs = _storage_phase(corpus, plan_corpus, t_q,
-                                                   card_out)
+    storage_launches, block_pairs = _storage_phase(corpus, plan_corpus,
+                                                   gauges, t_q, card_out)
+    del gauges
     for name, n in storage_launches.items():
         by_path[name]["storage"] = n
 
@@ -449,6 +519,11 @@ def main() -> int:
         by_path[name]["flush"] = n
     del block_pairs
     _guard_phase()
+
+    # -- 9. Graphite over stored carbon series, and query placement -------
+    for name, n in _graphite_phase(t_q).items():
+        by_path[name]["graphite"] = n
+    _placement_phase(corpus, t_q, card_out)
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -656,11 +731,68 @@ def _parent_turns(root, here, words, npts, window_cases, dev) -> None:
     phase(f"parent: {len(cases)} cases timed in turns")
 
 
-def _query_phase(corpus, plan_corpus, t):
+def _metric_of(q: str) -> bytes:
+    """The corpus a query reads: bench_requests, bench_gauge or
+    bench_metric."""
+    for metric in (b"bench_requests", b"bench_gauge"):
+        if metric.decode() in q:
+            return metric
+    return b"bench_metric"
+
+
+def _window_wanted(queries) -> int:
+    """The window kernel's launches for `queries`: one per *_over_time
+    (quantile_over_time sorts instead)."""
+    return sum("_over_time" in q and not q.startswith("quantile_over_time")
+               for q in queries)
+
+
+def _query_tol(q: str, exp):
+    """None (equal) or the allclose bounds of query q's check."""
+    if q.startswith(EXACT):
+        return None
+    for fn, tol in FAMILY_TOL.items():
+        if q.startswith(fn):
+            return tol
+    if "bench_gauge" in q:
+        finite = exp[np.isfinite(exp)]
+        scale = float(np.abs(finite).max()) if finite.size else 1.0
+        return dict(rtol=2e-5, atol=max(1e-8, 1e-6 * scale))
+    return dict(rtol=1e-5, atol=1e-8)
+
+
+def _check_query(q, blk, ref, what: str) -> float:
+    """blk against ref under q's bounds: same tags and order, same NaN
+    cells, values equal or within the bounds. Returns the largest
+    relative and absolute differences."""
+    got, exp = np.asarray(blk.values), np.asarray(ref.values)
+    check([x.id() for x in blk.series_tags]
+          == [x.id() for x in ref.series_tags], f"{q}: tags differ ({what})")
+    check(got.shape == exp.shape and bool(
+        (np.isnan(got) == np.isnan(exp)).all()),
+        f"{q}: NaN cells differ ({what})")
+    tol = _query_tol(q, exp)
+    if tol is None:
+        check(bool(np.array_equal(got, exp, equal_nan=True)),
+              f"{q}: values differ ({what}, expected equal)")
+    else:
+        check(bool(np.allclose(got, exp, equal_nan=True, **tol)),
+              f"{q}: values differ ({what}, {tol})")
+    fin = np.isfinite(exp)
+    if not fin.any():
+        return 0.0, 0.0
+    diff = np.abs(got - exp)[fin]
+    return (float((diff / np.maximum(np.abs(exp[fin]), 1e-30)).max()),
+            float(diff.max()))
+
+
+def _query_phase(corpus, plan_corpus, gauges, t):
     """The query path on the card against device="cpu", bench_metric
-    queries over bench_promql's storage and bench_requests queries over
-    bench_promql_plan_agg's, as the reference benchmark keeps them; returns
-    the window kernel's launches during the card run."""
+    queries over bench_promql's storage, bench_requests queries over
+    bench_promql_plan_agg's, and bench_gauge queries over the gauge grid.
+    The card's engines are the default one (no placement), so every
+    evaluation runs on the card. Returns the kernels' launches during the card run
+    and the card's answers."""
     import torch
 
     from m3_tpu_torch.ops import codec_kernels as ck
@@ -669,13 +801,13 @@ def _query_phase(corpus, plan_corpus, t):
     from m3_tpu_torch.testing import DictStorage
 
     storages = {b"bench_metric": DictStorage(corpus),
-                b"bench_requests": DictStorage(plan_corpus)}
+                b"bench_requests": DictStorage(plan_corpus),
+                b"bench_gauge": DictStorage(gauges)}
     engines = {m: (Engine(st), Engine(st, device="cpu"))
                for m, st in storages.items()}
 
     def engine(q, on_card):
-        return engines[b"bench_requests" if "bench_requests" in q
-                       else b"bench_metric"][0 if on_card else 1]
+        return engines[_metric_of(q)][0 if on_card else 1]
 
     start, end = int(t[30]), int(t[-1])
     ck.reset_launch_counts()
@@ -683,7 +815,7 @@ def _query_phase(corpus, plan_corpus, t):
     torch.cuda.synchronize()
     card_out = {}
     t0 = time.perf_counter()
-    for q in QUERIES:
+    for q in ALL_QUERIES:
         tq = time.perf_counter()
         blk = engine(q, True).execute_range(q, start, end, STEP_NS)
         blk.values
@@ -693,32 +825,26 @@ def _query_phase(corpus, plan_corpus, t):
     launches = wk.window_stat.launches
     codec = ck.launch_counts()
     query_launches = dict(codec, window=launches)
-    want = sum("_over_time" in q for q in QUERIES)
-    phase(f"query: {len(QUERIES)} queries on the card in {card_s:.3f}s, "
+    want = _window_wanted(ALL_QUERIES)
+    phase(f"query: {len(ALL_QUERIES)} queries on the card in {card_s:.3f}s, "
           f"window launches {launches} (expected {want}), codec {codec}")
     check(launches == want, f"window kernel launched {launches} times, "
           f"expected {want}")
-    for q in QUERIES:
+    for q in ALL_QUERIES:
         blk, secs = card_out[q]
         tq = time.perf_counter()
         ref = engine(q, False).execute_range(q, start, end, STEP_NS)
         cpu_s = time.perf_counter() - tq
-        got, exp = np.asarray(blk.values), np.asarray(ref.values)
-        check([x.id() for x in blk.series_tags]
-              == [x.id() for x in ref.series_tags], f"{q}: tags differ")
-        check(got.shape == exp.shape and bool(
-            (np.isnan(got) == np.isnan(exp)).all()), f"{q}: NaN cells differ")
-        check(bool(np.allclose(got, exp, rtol=1e-5, atol=1e-8,
-                               equal_nan=True)), f"{q}: values differ")
-        fin = np.isfinite(exp)
-        rel = float((np.abs(got - exp)[fin] / np.maximum(
-            np.abs(exp[fin]), 1e-30)).max()) if fin.any() else 0.0
-        print(f"query {q!r}: {got.shape}, card {secs:.4f}s, cpu "
-              f"{cpu_s:.4f}s, max rel diff {rel!r}")
+        rel, diff = _check_query(q, blk, ref, "card against device=cpu")
+        print(f"query {q!r}: {np.asarray(blk.values).shape}, card "
+              f"{secs:.4f}s, cpu {cpu_s:.4f}s, max rel diff {rel!r}, max "
+              f"abs diff {diff!r}, bound "
+              f"{_query_tol(q, np.asarray(ref.values))}")
     phase("query: every query on the card equals its device=\"cpu\" run")
+    _function_times(corpus, t)
     _breakdown(engines[b"bench_metric"][0], storages[b"bench_metric"], t,
                card_out)
-    with _instrumented({}) as pair:
+    with _instrumented(QUERY_STEPS) as pair:
         for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])"):
             engine(q, True).execute_range(q, start, end, STEP_NS).values
     print(f"pair through Engine.execute_range, traced: "
@@ -726,17 +852,44 @@ def _query_phase(corpus, plan_corpus, t):
     return query_launches, card_out
 
 
+def _function_times(corpus, t) -> None:
+    """Call time (CUDA events around a loop of calls, host enqueue
+    included) of the four torch-op device functions that the six range
+    functions run, at the [5m] grid of bench_promql's corpus ([10,000,
+    119] f32 residuals, W 10, stride 1), beside K4's `sum` at the same
+    grid."""
+    import torch
+
+    from m3_tpu_torch.ops import temporal as tp
+
+    resid = torch.from_numpy(np.ascontiguousarray(
+        _query_grids(corpus, t)[0][0])).to(torch.device("cuda"))
+    calls = {
+        "quantile_idx (quantile_over_time)":
+            lambda: tp._quantile_idx_fn(10)(resid, 0.9),
+        "changes_resets (changes)":
+            lambda: tp._changes_resets_fn(10, False)(resid),
+        "regression (deriv)":
+            lambda: tp._regression_fn(10, 30.0, 0.0, True)(resid),
+        "holt_winters": lambda: tp._holt_winters_fn(10, 0.3, 0.6)(resid),
+        "over_time (K4 sum)": lambda: tp._over_time_fn(10, "sum")(resid),
+    }
+    for name, fn in calls.items():
+        print(f"function {name} at {tuple(resid.shape)} W 10: call "
+              f"{cuda_ms(fn, 20)!r} ms")
+
+
 def _breakdown(card, storage, t, card_out, label: str = "") -> None:
     """Host clock of one rate + sum_over_time pair, by step, each step
     ending in torch.cuda.synchronize(): fetch + consolidate_series, host
     prep (_host_diff_grid / center), the H2D copy, the device kernels, the
-    D2H copy plus finish. The results must equal the Engine's."""
+    D2H copy plus finish. The results must equal the Engine's. Then the
+    pair's warm, cold and missing runs (_pair_runs)."""
     import torch
 
     from m3_tpu_torch.ops import temporal as tp
     from m3_tpu_torch.query import promql
     from m3_tpu_torch.query.block import BlockMeta, consolidate_series
-    from m3_tpu_torch.query.executor import Engine
 
     dev = torch.device("cuda")
     start, end = int(t[30]), int(t[-1])
@@ -778,18 +931,101 @@ def _breakdown(card, storage, t, card_out, label: str = "") -> None:
         print(f"breakdown{label} {q}: " + ", ".join(
             f"{n} {x * 1e3:.3f} ms" for n, x in zip(names, d))
             + f"; total {d.sum() * 1e3:.3f} ms")
-    for which, eng in (("grid cache warm", card), ("cold", Engine(storage))):
-        with _gc_pauses() as pauses:
+    _pair_runs(card, storage, t, label)
+
+
+def _pair_runs(card, storage, t, label: str) -> None:
+    """The rate + sum_over_time pair, PAIR_RUNS times each way:
+    warm: the engine whose grid cache and derived-input id path hold the
+    grids; cold: a new engine each run, so its grids are new objects with
+    the content of earlier runs, and the derived-input cache's content
+    tier hashes them and hits; miss: a new engine and a start later by a
+    number of steps no earlier miss run of the script used (phase 7 (b)'s
+    store grids the same content as phase 6's dict), so the grids'
+    content is new and the content tier hashes, misses, runs the host
+    prep and uploads. Prints the median and
+    each run with the full GC pauses inside it set apart, the
+    derived-input cache's hits and misses, and the host clock spent
+    hashing, in host prep and in the H2D copies."""
+    import torch
+
+    from m3_tpu_torch.ops import temporal as tp
+    from m3_tpu_torch.query.executor import Engine
+
+    start, end = int(t[30]), int(t[-1])
+    counter = tp._DERIVED_METRICS.counter
+    for which in ("warm", "cold", "miss"):
+        runs = []
+        for i in range(PAIR_RUNS):
+            eng = card if which == "warm" else Engine(storage)
+            first = (start + next(_MISS_SHIFTS) * STEP_NS if which == "miss"
+                     else start)
+            hits, misses = counter("hits").value(), counter("misses").value()
+            with _host_clock() as spent, _gc_pauses() as pauses:
+                t0 = time.perf_counter()
+                blocks = [eng.execute_range(q, first, end, STEP_NS)
+                          for q in ("rate(bench_metric[5m])",
+                                    "sum_over_time(bench_metric[5m])")]
+                for blk in blocks:
+                    blk.values
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            runs.append(dict(ms=ms, pauses=pauses,
+                             **{k: v * 1e3 for k, v in spent.items()},
+                             hits=counter("hits").value() - hits,
+                             misses=counter("misses").value() - misses))
+        med = float(np.median([r["ms"] for r in runs]))
+        med_gc = float(np.median([r["ms"] - sum(r["pauses"]) for r in runs]))
+        print(f"pair through Engine.execute_range{label}, {which}: median of "
+              f"{PAIR_RUNS} {med!r} ms ({med_gc!r} ms with full GC pauses "
+              f"taken out); runs " + "; ".join(
+                  f"{r['ms']!r} ms, GC pauses {r['pauses']}, derived cache "
+                  f"hits {r['hits']} misses {r['misses']}, hashing "
+                  f"{r['hash']!r} ms, host prep {r['prep']!r} ms, H2D "
+                  f"{r['h2d']!r} ms" for r in runs))
+
+
+@contextlib.contextmanager
+def _host_clock():
+    """The host clock (seconds) spent inside the block in ops/temporal's
+    blake2b calls ("hash"), in its host prep, rate_inputs and center
+    ("prep"), and in its H2D copies, _put with a synchronize after each
+    ("h2d"), in the dict it yields."""
+    import hashlib
+
+    import torch
+
+    from m3_tpu_torch.ops import temporal as tp
+
+    spent = {"hash": 0.0, "prep": 0.0, "h2d": 0.0}
+
+    def timed(key, fn, sync=False):
+        def call(*args, **kwargs):
             t0 = time.perf_counter()
-            blocks = [eng.execute_range(q, start, end, STEP_NS)
-                      for q in ("rate(bench_metric[5m])",
-                                "sum_over_time(bench_metric[5m])")]
-            for blk in blocks:
-                blk.values
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        print(f"pair through Engine.execute_range{label}, {which}: "
-              f"{ms:.3f} ms; full GC pauses inside, ms: {pauses}")
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    class _Timed:
+        def __getattr__(self, name):
+            return getattr(hashlib, name)
+
+        blake2b = staticmethod(timed("hash", hashlib.blake2b))
+
+    saved = {n: getattr(tp, n)
+             for n in ("hashlib", "rate_inputs", "center", "_put")}
+    tp.hashlib = _Timed()
+    tp.rate_inputs = timed("prep", saved["rate_inputs"])
+    tp.center = timed("prep", saved["center"])
+    tp._put = timed("h2d", saved["_put"], sync=True)
+    try:
+        yield spent
+    finally:
+        for n, v in saved.items():
+            setattr(tp, n, v)
 
 
 @contextlib.contextmanager
@@ -817,7 +1053,7 @@ def _gc_pauses():
         gc.callbacks.remove(note)
 
 
-def _storage_phase(corpus, plan_corpus, t, card_out):
+def _storage_phase(corpus, plan_corpus, gauges, t, card_out):
     """Phase 7: the storage node on the card. Returns each kernel's
     launches over the phase's two paths (the counts set to 0 before each
     and read after), and each shard's pair of sealed blocks of (a) for
@@ -848,15 +1084,17 @@ def _storage_phase(corpus, plan_corpus, t, card_out):
     pairs = [tuple(blk for _, blk in sorted(shard.blocks.items()))
              for shard in db.namespace(b"bench").shards.values()]
     db.close()
-    check(block_cache.get_cache().budget.total() == 0,
-          "the closed database left bytes charged to the budget")
+    left = {k: v for k, v in block_cache.get_cache().budget.usage().items()
+            if v and k not in QUERY_CACHE_TENANTS}
+    check(not left, f"the closed database left bytes charged to the budget: "
+          f"{left}")
     del db
     torch.cuda.empty_cache()
 
     ck.reset_launch_counts()
     wk.window_stat.launches = 0
     torch.cuda.synchronize()
-    query_launches = _stored_promql(corpus, plan_corpus, t, card_out)
+    query_launches = _stored_promql(corpus, plan_corpus, gauges, t, card_out)
     for name, n in query_launches.items():
         launches[name] += n
     return launches, pairs
@@ -1138,11 +1376,11 @@ def _check_sealed_planes(db) -> None:
           f"planes bit for bit, cached and bypassed")
 
 
-def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
-    """Phase 7 (b): both query corpora written with tags into a 16-shard
-    Database with the namespace index, sealed, and the 18 queries through
-    Engine(LocalStorage(db)) on the card, held against phase 6's
-    Engine(DictStorage) answers. Returns the kernels' launches."""
+def _stored_promql(corpus, plan_corpus, gauges, t, card_out) -> dict:
+    """Phase 7 (b): the three query corpora written with tags into a
+    16-shard Database with the namespace index, sealed, and phase 6's
+    queries through Engine(LocalStorage(db)) on the card, held against phase 6's Engine(DictStorage) answers.
+    Returns the kernels' launches."""
     import torch
 
     from m3_tpu_torch.ops import codec_kernels as ck
@@ -1159,11 +1397,11 @@ def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
     db.ensure_namespace(b"default")
     w0 = time.perf_counter()
     calls = 0
-    for series in (corpus, plan_corpus):
+    for series in (corpus, plan_corpus, gauges):
         calls += write_corpus(db, b"default", series, t, now)
     torch.cuda.synchronize()
     write_s = time.perf_counter() - w0
-    points = (len(corpus) + len(plan_corpus)) * len(t)
+    points = (len(corpus) + len(plan_corpus) + len(gauges)) * len(t)
     now["t"] = int(t[-1]) - int(t[-1]) % BLOCK_NS + BLOCK_NS + 11 * MINUTE_NS
     s0 = time.perf_counter()
     sealed = db.tick()["sealed"]
@@ -1178,7 +1416,7 @@ def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
     start, end = int(t[30]), int(t[-1])
     q0 = time.perf_counter()
     out = {}
-    for q in QUERIES:
+    for q in ALL_QUERIES:
         tq = time.perf_counter()
         blk = card.execute_range(q, start, end, STEP_NS)
         blk.values
@@ -1186,22 +1424,17 @@ def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
         out[q] = (blk, time.perf_counter() - tq)
     query_s = time.perf_counter() - q0
     launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
-    want = sum("_over_time" in q for q in QUERIES)
-    phase(f"storage (b): {len(QUERIES)} queries over LocalStorage on the card "
+    want = _window_wanted(ALL_QUERIES)
+    phase(f"storage (b): {len(ALL_QUERIES)} queries over LocalStorage on the card "
           f"in {query_s:.3f}s, launches {launches}; block cache "
           f"{block_cache.get_cache().stats()}")
     check(launches["window"] == want, f"window kernel launched "
           f"{launches['window']} times, expected {want}")
-    for q in QUERIES:
+    for q in ALL_QUERIES:
         blk, secs = out[q]
         ref = card_out[q][0]
+        _check_query(q, blk, ref, "LocalStorage against DictStorage")
         got, exp = np.asarray(blk.values), np.asarray(ref.values)
-        check([x.id() for x in blk.series_tags]
-              == [x.id() for x in ref.series_tags], f"{q}: tags differ")
-        check(got.shape == exp.shape and bool(
-            (np.isnan(got) == np.isnan(exp)).all()), f"{q}: NaN cells differ")
-        check(bool(np.allclose(got, exp, rtol=1e-5, atol=1e-8,
-                               equal_nan=True)), f"{q}: values differ")
         print(f"stored query {q!r}: {got.shape}, card {secs:.4f}s, DictStorage "
               f"card {card_out[q][1]:.4f}s, identical "
               f"{bool(np.array_equal(got, exp, equal_nan=True))}")
@@ -1209,7 +1442,7 @@ def _stored_promql(corpus, plan_corpus, t, card_out) -> dict:
           "answer")
     _fetch_split(db, t)
     _breakdown(card, storage, t, card_out, " LocalStorage")
-    with _instrumented({}) as pair:
+    with _instrumented(QUERY_STEPS) as pair:
         for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])"):
             card.execute_range(q, start, end, STEP_NS).values
     print(f"pair through Engine.execute_range LocalStorage, traced: "
@@ -1769,6 +2002,188 @@ def _real_oom(words, npts, w, want) -> None:
     phase(f"guard (c): a real CUDA out-of-memory error ({free} bytes free, "
           f"ballast of {free - (2 << 30)}) typed DeviceOOM, reclaim_pass "
           f"freed {freed} bytes, the retry returned the exact answer")
+
+
+# Phase 9: carbon series bench.host{0..199}.metric{0..49}, positive
+# levels on the query corpora's 360-point 10 s grid (seed 29), and the
+# render targets over them.
+CARBON_HOSTS, CARBON_METRICS, CARBON_SEED = 200, 50, 29
+GRAPHITE_TARGETS = (
+    "movingAverage(bench.host*.metric0, '5min')",
+    "movingSum(bench.host*.metric0, '5min')",
+    "movingMax(bench.host*.metric0, '5min')",
+    "movingMin(bench.host*.metric0, '5min')",
+    "movingMedian(bench.host*.metric0, '5min')",
+    "stdev(bench.host*.metric0, 30)",
+    "sumSeries(bench.*.metric*)",
+    "groupByNode(bench.*.metric1, 1, 'sum')",
+    "perSecond(bench.host*.metric0)",
+    "summarize(bench.host*.metric0, '1min', 'sum')",
+    "highestCurrent(bench.host*.metric0, 5)",
+)
+# The window kernel's launches: one per moving{Average,Sum,Max,Min}, two
+# for stdev (its stddev and count passes); movingMedian sorts instead.
+GRAPHITE_WINDOW_LAUNCHES = 6
+PLACEMENT_RUNS = 20
+
+
+def _carbon_corpus(t) -> dict:
+    """{path: {tags, t, v}}: CARBON_HOSTS x CARBON_METRICS carbon series
+    (tags from metrics.carbon.path_to_tags), each a positive level
+    exp(normal(3, 1)) drifting by a 1% log random walk."""
+    from m3_tpu_torch.metrics import carbon
+
+    rng = np.random.default_rng(CARBON_SEED)
+    n = CARBON_HOSTS * CARBON_METRICS
+    vals = np.exp(rng.normal(3.0, 1.0, (n, 1))
+                  + np.cumsum(rng.normal(0.0, 0.01, (n, len(t))), axis=1))
+    out = {}
+    for i in range(n):
+        path = b"bench.host%d.metric%d" % (i // CARBON_METRICS,
+                                           i % CARBON_METRICS)
+        out[path] = {"tags": carbon.path_to_tags(path), "t": t, "v": vals[i]}
+    return out
+
+
+def _graphite_phase(t) -> dict:
+    """Phase 9 (a): the carbon corpus written through a 16-shard Database
+    with the namespace index (the hash kernel once a write_batch) and
+    sealed (the pack kernel once a block), then GRAPHITE_TARGETS rendered
+    through GraphiteEngine(LocalStorage(db)) on the card (cold reads
+    decode through the decode kernel; moving* and stdev run the window
+    kernel) and held against device="cpu" renders over the same store:
+    same names and order, same NaN cells, rtol 1e-5, atol 1e-8. Returns
+    the kernels' launches over the write, the seal and the card renders."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.query.graphite import GraphiteEngine, series_name
+    from m3_tpu_torch.query.storage import LocalStorage
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.testing import write_corpus
+
+    series = _carbon_corpus(t)
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    now = {"t": int(t[0])}
+    db = Database(ShardSet(num_shards=16), clock=lambda: now["t"])
+    db.ensure_namespace(b"default")
+    w0 = time.perf_counter()
+    calls = write_corpus(db, b"default", series, t, now)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - w0
+    now["t"] = int(t[-1]) - int(t[-1]) % BLOCK_NS + BLOCK_NS + 11 * MINUTE_NS
+    s0 = time.perf_counter()
+    sealed = db.tick()["sealed"]
+    torch.cuda.synchronize()
+    points = len(series) * len(t)
+    print(f"graphite store: {len(series)} carbon series, {calls} write_batch "
+          f"calls, {points} points in {write_s:.3f}s host clock "
+          f"({points / write_s:.1f} datapoints/s); seal of {sealed} blocks "
+          f"in {time.perf_counter() - s0:.3f}s")
+    check(sealed == 16, f"tick sealed {sealed} blocks, expected 16")
+    storage = LocalStorage(db, b"default")
+    card = GraphiteEngine(storage)
+    cpu = GraphiteEngine(storage, device="cpu")
+    start, end = int(t[60]), int(t[-1])
+    out = {}
+    r0 = time.perf_counter()
+    for target in GRAPHITE_TARGETS:
+        tq = time.perf_counter()
+        blk = card.render(target, start, end)
+        torch.cuda.synchronize()
+        out[target] = (blk, time.perf_counter() - tq)
+    render_s = time.perf_counter() - r0
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    phase(f"graphite: {len(GRAPHITE_TARGETS)} renders over LocalStorage on "
+          f"the card in {render_s:.3f}s, launches {launches}")
+    check(launches["hash"] == calls, f"hash kernel launched "
+          f"{launches['hash']} times for {calls} write_batch calls")
+    check(launches["pack"] == sealed, f"pack kernel launched "
+          f"{launches['pack']} times for {sealed} seals")
+    check(launches["decode"] > 0, "the decode kernel did not launch")
+    check(launches["window"] == GRAPHITE_WINDOW_LAUNCHES, f"window kernel "
+          f"launched {launches['window']} times, expected "
+          f"{GRAPHITE_WINDOW_LAUNCHES}")
+    for target in GRAPHITE_TARGETS:
+        blk, secs = out[target]
+        tq = time.perf_counter()
+        ref = cpu.render(target, start, end)
+        cpu_s = time.perf_counter() - tq
+        got, exp = np.asarray(blk.values), np.asarray(ref.values)
+        check([series_name(x) for x in blk.series_tags]
+              == [series_name(x) for x in ref.series_tags],
+              f"{target}: names differ")
+        check(got.shape == exp.shape and bool(
+            (np.isnan(got) == np.isnan(exp)).all()),
+            f"{target}: NaN cells differ")
+        check(bool(np.allclose(got, exp, rtol=1e-5, atol=1e-8,
+                               equal_nan=True)), f"{target}: values differ")
+        print(f"graphite {target!r}: {got.shape}, card {secs:.4f}s, cpu "
+              f"{cpu_s:.4f}s, identical "
+              f"{bool(np.array_equal(got, exp, equal_nan=True))}")
+    phase("graphite: every render on the card equals its device=\"cpu\" "
+          "render")
+    db.close()
+    return launches
+
+
+def _placement_phase(corpus, t, card_out) -> None:
+    """Phase 9 (b): the opt-in placement model (the reference's "auto")
+    on the card: the
+    probe's RTT and D2H bandwidth, choose() at four grid sizes (a result
+    plane of cells / 447 series x 110 steps of f32, bench_promql's shape),
+    and the decisions over PLACEMENT_RUNS repeat rate evaluations at
+    bench_promql's shape, with the model after each 5. A host-served
+    answer must equal the device="cpu" engine's, a card-served one phase
+    6's card answer."""
+    import torch
+
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.placement import QueryPlacement
+    from m3_tpu_torch.testing import DictStorage
+
+    probe = QueryPlacement("cuda")
+    probe._probe_link()
+    snap = probe.snapshot()
+    print(f"placement probe: rtt {snap['rtt_ms']!r} ms, D2H "
+          f"{snap['d2h_bw_mb_s']!r} MiB/s")
+    for cells in (10**2, 10**4, 10**6, 4_470_000):
+        result = max(1, cells // 447) * 110 * 4
+        side = "host" if probe.choose(cells, result) is not None else "device"
+        print(f"placement choose({cells} cells, {result} result bytes): "
+              f"{side}")
+    q = "rate(bench_metric[5m])"
+    start, end = int(t[30]), int(t[-1])
+    storage = DictStorage(corpus)
+    eng = Engine(storage, placement=QueryPlacement("cuda"))
+    host_want = Engine(storage, device="cpu").execute_range(
+        q, start, end, STEP_NS).values
+    card_want = np.asarray(card_out[q][0].values)
+    sides = []
+    for i in range(PLACEMENT_RUNS):
+        before = eng.placement_snapshot()["placed_host"]
+        t0 = time.perf_counter()
+        got = eng.execute_range(q, start, end, STEP_NS).values
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        side = ("host" if eng.placement_snapshot()["placed_host"] > before
+                else "device")
+        sides.append(side)
+        want = host_want if side == "host" else card_want
+        check(bool(np.array_equal(got, want, equal_nan=True)),
+              f"placement run {i + 1} ({side}) differs from the {side} "
+              f"answer")
+        print(f"placement run {i + 1}: {side}, {ms:.3f} ms")
+        if (i + 1) % 5 == 0:
+            print(f"placement model after {i + 1}: "
+                  f"{eng.placement_snapshot()}")
+    phase(f"placement: {PLACEMENT_RUNS} rate evaluations under the model "
+          f"served by {sides}; each equals the answer of the side that "
+          f"served it")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

@@ -45,6 +45,14 @@ def count_h2d(nbytes: int):
         tracing.count_cost("h2d_bytes", int(nbytes))
 
 
+def count_d2h(nbytes: int):
+    """Device->host transfer bytes at a result materialization point."""
+    if nbytes > 0:
+        _XFER.counter("d2h_bytes").inc(int(nbytes))
+        _XFER.counter("d2h_transfers").inc()
+        tracing.count_cost("d2h_bytes", int(nbytes))
+
+
 _BUCKET_LOCK = threading.Lock()
 _SEEN_BUCKETS: set = set()
 _BUCKET_CAP = 4096  # safety bound; real bucket sets are tens of entries

@@ -14,10 +14,15 @@ Matrix selectors grid at gcd(step, range) so sub-step samples inside a
 window survive consolidation (the reference's block consolidation has the
 same step-alignment semantics, src/query/ts/values.go).
 
+An engine given a QueryPlacement (query/placement.py) makes where the
+range functions and the large grouped aggregations run a measured
+choice: an engine on the card may then place an evaluation on the host,
+where the same functions run with device="cpu". Without one, the
+default, everything runs on the engine's device.
+
 Not in this port yet: the whole-plan compiled route (the reference's
-_try_plan), the mesh-sharded aggregation, the adaptive host/device
-placement, EXPLAIN/ANALYZE and the query corpus recorder. The range
-functions in _NOT_PORTED raise QueryError."""
+_try_plan), the mesh-sharded aggregation, EXPLAIN/ANALYZE and the query
+corpus recorder."""
 
 from __future__ import annotations
 
@@ -58,11 +63,9 @@ DEFAULT_SUBQUERY_RES_NS = 15 * 1_000_000_000
 Scalar = np.ndarray  # [steps] float
 Value = Union[Block, np.ndarray, float]
 
-# Range functions whose temporal kernels are not ported yet.
-_NOT_PORTED = ("deriv", "predict_linear", "holt_winters", "changes",
-               "resets", "quantile_over_time")
-
-# The route every query of this port takes (the slow-query log's record).
+# The route every query of this port takes (the slow-query log's record,
+# which adds the query's placements: "device", "host", "mixed", or None
+# when nothing was placed).
 _ROUTE = {"route": "interpreter", "fallback_reason": None,
           "fallback_detail": None}
 
@@ -175,13 +178,22 @@ class Engine:
 
     device: where the kernels run; None (the default) is the CUDA card and
     raises without one, "cpu" runs the plain PyTorch versions. Resolved
-    once, here."""
+    once, here.
+
+    placement: None (the default) runs every evaluation on `device`; a
+    QueryPlacement for the same device opts in to its measured
+    card-or-host cost model (query/placement.py). An engine on the CPU
+    has nothing to place."""
 
     def __init__(self, storage, lookback_ns: int = DEFAULT_LOOKBACK_NS,
                  cost_enforcer=None, per_query_cost_limit=None,
-                 query_limits=None, device=None):
+                 query_limits=None, device=None, placement=None):
         self.storage = storage
         self.device = resolve(device)
+        if placement is not None and placement.device != self.device:
+            raise ValueError(f"placement is for {placement.device}, the "
+                             f"engine runs on {self.device}")
+        self._placement = placement
         # Overload-protection registry (utils.limits). None = resolve the
         # process-global registry at query time, so a deployment that
         # configures limits after engine construction still gets them.
@@ -201,6 +213,42 @@ class Engine:
         self._local = threading.local()
         self._grid_cache = _GridCache()
 
+    def placement_snapshot(self) -> Optional[dict]:
+        """The live card-or-host cost model: measured link bandwidth and
+        RTT, per-path rate EWMAs, and the decisions made by side; None
+        for an engine without a placement."""
+        return None if self._placement is None else self._placement.snapshot()
+
+    def _place(self, cells: int, result_bytes: int):
+        """None (the engine's device) or the host device. With a
+        placement, one counted decision, recorded for this query's route
+        record."""
+        from ..utils.instrument import ROOT
+
+        if self._placement is None:
+            return None
+        placed = self._placement.choose(cells, result_bytes)
+        side = "host" if placed is not None else "device"
+        ROOT.counter(f"query.placement.{side}").inc()
+        sides = getattr(self._local, "placements", None)
+        if sides is not None:
+            sides.add(side)
+        return placed
+
+    def _observe(self, placed, cells: int, nbytes: int,
+                 seconds: float) -> None:
+        """Fold an evaluation's observed time into the placement's model
+        (nothing without a placement)."""
+        if self._placement is not None:
+            self._placement.observe(placed, cells, nbytes, seconds)
+
+    def _route(self) -> dict:
+        """This thread's last query's route record."""
+        sides = getattr(self._local, "placements", None) or set()
+        placement = (None if not sides else "mixed" if len(sides) > 1
+                     else next(iter(sides)))
+        return dict(_ROUTE, placement=placement)
+
     def execute_range(self, query: str, start_ns: int, end_ns: int,
                       step_ns: int, ast: Optional[Node] = None) -> Block:
         from ..utils.instrument import ROOT
@@ -211,6 +259,7 @@ class Engine:
         # A failure before this query's scope runs must not inherit the
         # previous query's totals on this reused serving thread.
         xlimits.reset_last_totals()
+        self._local.placements = set()
         t0 = time.perf_counter_ns()
         # Slow-query accounting: typed sheds record regardless of
         # duration; completed queries record past the threshold, with
@@ -223,13 +272,13 @@ class Engine:
         except xlimits.ResourceExhausted:
             SLOW_QUERIES.maybe("query", query, time.perf_counter_ns() - t0,
                                costs=xlimits.last_scope_totals(),
-                               reason="limit-shed", route=_ROUTE,
+                               reason="limit-shed", route=self._route(),
                                trace_id=sp.trace_id or None)
             raise
         except DeadlineExceeded:
             SLOW_QUERIES.maybe("query", query, time.perf_counter_ns() - t0,
                                costs=xlimits.last_scope_totals(),
-                               reason="deadline", route=_ROUTE,
+                               reason="deadline", route=self._route(),
                                trace_id=sp.trace_id or None)
             raise
         from ..utils import tracing
@@ -241,7 +290,7 @@ class Engine:
                            costs=((lambda: tracing.collect_costs(sp))
                                   if sp.sampled
                                   else xlimits.last_scope_totals()),
-                           route=_ROUTE, trace_id=sp.trace_id or None)
+                           route=self._route(), trace_id=sp.trace_id or None)
         return result
 
     def _execute_range(self, query: str, start_ns: int, end_ns: int,
@@ -495,8 +544,6 @@ class Engine:
         if not range_args or not (isinstance(range_args[-1], Subquery)
                                   or range_args[-1].range_ns):
             raise QueryError(f"{node.func} expects a range vector")
-        if node.func in _NOT_PORTED:
-            raise QueryError(f"{node.func} is not ported to m3_tpu_torch yet")
         sel = range_args[-1]
         if sel.at_ns is not None:
             return self._pin_at(node, sel, params)
@@ -504,13 +551,27 @@ class Engine:
             ext, W, stride = self._eval_subquery_grid(sel, params)
         else:
             ext, W, stride = self._eval_range_selector(sel, params)
+        # With a placement, where the functions run is a measured decision
+        # (placement.py): a full result plane may be cheaper to compute on
+        # the host than to ship off the card.
+        cells = int(ext.values.size)
+        result_bytes = ext.n_series * params.meta().steps * 4
+        placed = self._place(cells, result_bytes)
+        return self._dispatch_range_func(
+            node, sel, params, ext, W, stride, placed=placed, cells=cells,
+            result_bytes=result_bytes, t_dispatch=time.perf_counter())
+
+    def _dispatch_range_func(self, node, sel, params, ext, W, stride, *,
+                             placed, cells, result_bytes, t_dispatch):
+        from ..parallel import telemetry
+
         # Every kernel consolidates to the query's output step grid on the
         # device (stride), so nothing wider than [series, steps] comes
         # back; the rate family and *_over_time return fetch closures
         # (LazyBlock) that copy the result when it is first read.
         grid = ext.values
         step_ns = ext.meta.step_ns
-        dev = self.device
+        dev = placed if placed is not None else self.device
         f = node.func
         fetch = None
         if f == "rate":
@@ -526,6 +587,23 @@ class Engine:
             out = temporal.irate(grid, W, step_ns, stride, device=dev)
         elif f == "idelta":
             out = temporal.idelta(grid, W, step_ns, stride, device=dev)
+        elif f == "deriv":
+            out = temporal.deriv(grid, W, step_ns, stride, device=dev)
+        elif f == "predict_linear":
+            out = temporal.predict_linear(
+                grid, W, step_ns, _const_param(node.args[1]), stride,
+                device=dev)
+        elif f == "holt_winters":
+            out = temporal.holt_winters(
+                grid, W, _const_param(node.args[1]), _const_param(node.args[2]),
+                stride, device=dev)
+        elif f == "changes":
+            out = temporal.changes(grid, W, stride, device=dev)
+        elif f == "resets":
+            out = temporal.resets(grid, W, stride, device=dev)
+        elif f == "quantile_over_time":
+            out = temporal.quantile_over_time(
+                grid, W, _const_param(node.args[0]), stride, device=dev)
         elif f == "absent_over_time":
             # 1 at steps where NO series has a sample in the window
             # (functions.go funcAbsentOverTime), labelled from the
@@ -544,7 +622,24 @@ class Engine:
         drop_name = f not in ("last_over_time",)
         tags = [_strip_name(t) if drop_name else t for t in ext.series_tags]
         if fetch is not None:
-            return LazyBlock(params.meta(), tags, fetch)
+            inner = fetch
+            # Observed cost = the dispatch segment + the materialization
+            # segment; the wall time between them (other work interleaved
+            # before the LazyBlock is read) is not this evaluation's.
+            dispatch_s = time.perf_counter() - t_dispatch
+
+            def observed_fetch():
+                t0 = time.perf_counter()
+                result = inner()
+                self._observe(placed, cells, result_bytes,
+                              dispatch_s + time.perf_counter() - t0)
+                telemetry.count_d2h(result_bytes)
+                return result
+
+            return LazyBlock(params.meta(), tags, observed_fetch)
+        self._observe(placed, cells, result_bytes,
+                      time.perf_counter() - t_dispatch)
+        telemetry.count_d2h(result_bytes)
         return Block(params.meta(), tags, out)
 
     def _eval_instant_func(self, node: Call, params: QueryParams) -> Value:
@@ -664,8 +759,19 @@ class Engine:
             if vals.shape[0] < 4096:
                 out = series_agg.grouped_reduce_f64(vals, group_ids, G, kind)
             else:
-                out = series_agg.grouped_reduce(vals, group_ids, G, kind,
-                                                device=self.device)
+                # Placed like a range function: the transfer term is the
+                # f32 input's H2D plus the grouped result's D2H, and the
+                # same value feeds observe(), so the model nets out what
+                # choose() charged.
+                cells = int(vals.size)
+                xfer_bytes = cells * 4 + G * vals.shape[1] * 8
+                placed = self._place(cells, xfer_bytes)
+                t0 = time.perf_counter()
+                out = series_agg.grouped_reduce(
+                    vals, group_ids, G, kind,
+                    device=placed if placed is not None else self.device)
+                self._observe(placed, cells, xfer_bytes,
+                              time.perf_counter() - t0)
             if op == "group":
                 # promql group(): 1 per group with any present series.
                 out = np.where(out > 0, 1.0, np.nan)

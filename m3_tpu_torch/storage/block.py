@@ -219,7 +219,13 @@ def _dispatch_decode(words, npoints, window: int, unit_nanos: int, device):
     block.decode; the decode kernel inside is guarded again as
     codec.decode). The primary ends in the D2H copy, so the guard's
     timeout sees the whole decode. A fault raises a typed ComputeError:
-    there is no host decoder to fall back to."""
+    there is no host decoder to fall back to.
+
+    The route means something else than in the reference, where
+    block.decode exists to choose the host ref_codec fallback: here it is
+    the only guard whose timeout and breaker cover the D2H copy and
+    decode_plane's finish (a fault inside codec.decode passes through it
+    typed, counted once where it happened)."""
     from ..parallel import guard
 
     def _device():

@@ -10,8 +10,9 @@ prometheus_ids draws series IDs shaped like Prometheus label sets.
 For the query path: hostile_residuals draws f32 residual grids for the
 window kernel, window_reorder_bounds gives the per-window tolerance of its
 f32 sums, and promql_corpus builds the reference benchmark's PromQL
-storage (bench.py bench_promql / bench_promql_plan_agg). write_corpus
-writes such a corpus into a storage Database in time order."""
+storage (bench.py bench_promql / bench_promql_plan_agg), gauge_corpus
+mixed-sign gauges on the same grid. write_corpus writes such a corpus
+into a storage Database in time order."""
 
 from __future__ import annotations
 
@@ -151,6 +152,23 @@ def promql_corpus(n: int, seed: int, hosts: int = 0,
             sid = b"%s{i=%d}" % (metric, i)
         series[sid] = {"tags": tags, "t": t, "v": vals[i]}
     return series, t
+
+
+def gauge_corpus(n: int, seed: int, metric: bytes = b"bench_gauge",
+                 nan_frac: float = 0.2):
+    """(series dict, timestamps): n mixed-sign gauges, normal(0, 1) x 10,
+    on promql_corpus's grid (360 points at 10 s from 1,700,000,000 s),
+    with `nan_frac` of the values NaN, drawn from
+    np.random.default_rng(seed). Windows over them cancel: their f32 sums
+    are held to the reference's scale-aware bound, not to rtol 1e-5."""
+    s_ns = 1_000_000_000
+    rng = np.random.default_rng(seed)
+    t = 1_700_000_000 * s_ns + np.arange(360, dtype=np.int64) * 10 * s_ns
+    vals = rng.standard_normal((n, 360)) * 10.0
+    vals[rng.random((n, 360)) < nan_frac] = np.nan
+    return {b"%s{i=%d}" % (metric, i): {
+        "tags": {b"__name__": metric, b"i": str(i).encode()}, "t": t,
+        "v": vals[i]} for i in range(n)}, t
 
 
 def write_corpus(db, namespace: bytes, series: dict, t, now: dict,

@@ -702,6 +702,42 @@ def test_nested_route_error_passes_through_untouched():
         - _counter(before, key % "t.outer") == 0
 
 
+def test_block_decode_d2h_fault_is_typed_and_counted_once(monkeypatch):
+    """A device fault in the D2H copy that ends block.decode's primary,
+    after the nested codec.decode answered: typed KernelFault of the
+    block.decode route, one fault counted there and none on codec.decode
+    (the route's port meaning, ROADMAP C2)."""
+    ts, vals, npoints = _corpus(43, 8, 8)
+    b = blk.encode_block(0, np.arange(8, dtype=np.int32), ts * S, vals,
+                         npoints, device=CPU)
+    real = tsz.decode_plane
+
+    class _FaultyCopy:
+        def __init__(self, t):
+            self.t = t
+
+        def cpu(self):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+
+    def decode_then_fault(*a, **k):
+        out_ts, out_vals = real(*a, **k)
+        return _FaultyCopy(out_ts), out_vals
+
+    monkeypatch.setattr(blk.tsz, "decode_plane", decode_then_fault)
+    before = ROOT.snapshot()
+    with pytest.raises(guard.KernelFault) as info:
+        b.read_all()
+    assert info.value.route == "block.decode"
+    after = ROOT.snapshot()
+    key = "telemetry.compute.faults{kind=kernel,route=%s}"
+    assert _counter(after, key % "block.decode") \
+        - _counter(before, key % "block.decode") == 1
+    assert _counter(after, key % "codec.decode") \
+        == _counter(before, key % "codec.decode")
+    guard.reset()
+
+
 def test_builder_forwarding_survives_guard():
     assert temporal._last_two_idx_fn.cache_info is not None
     assert isinstance(temporal._last_two_idx_fn(8), guard._GuardedFn)

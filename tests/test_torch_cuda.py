@@ -485,3 +485,109 @@ def test_injected_decode_fault_on_card_raises_typed(cuda):
     got = tsz.decode_batch(words, npts, window=40)
     torch.cuda.synchronize()
     assert torch.equal(got["v"], real_plain(words, npts, 40)[2])
+
+
+# -- the rest of the query path: six functions, caches, Graphite, placement
+
+
+_FAMILY_TOL = {"deriv": dict(rtol=1e-3, atol=1e-4),
+               "predict_linear": dict(rtol=2e-3, atol=1e-2),
+               "holt_winters": dict(rtol=2e-3, atol=1e-2)}
+
+
+def _gauge_grid(seed, s=500, k=139):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(0.0, 10.0, (s, k))
+    g[rng.random((s, k)) < 0.2] = np.nan
+    g[0] = np.nan
+    g[1] = 3.0
+    return g
+
+
+@pytest.mark.parametrize("W,stride", [(10, 1), (31, 3)])
+def test_six_functions_on_card_match_cpu(cuda, W, stride):
+    """changes, resets and quantile_over_time equal the CPU run exactly
+    (the same comparisons and stable-argsort indices of the same f32
+    residuals); deriv, predict_linear and holt_winters within the
+    reference's family bounds (tests/test_plan_compile.py:170-175)."""
+    from m3_tpu_torch.ops import temporal as tp
+
+    step = 10 * 10**9
+    for g in (_gauge_grid(W), np.cumsum(np.random.default_rng(W).poisson(
+            5.0, (500, 139)), axis=1).astype(np.float64)):
+        calls = {
+            "quantile_over_time": lambda d: tp.quantile_over_time(
+                g, W, 0.9, stride, device=d),
+            "changes": lambda d: tp.changes(g, W, stride, device=d),
+            "resets": lambda d: tp.resets(g, W, stride, device=d),
+            "deriv": lambda d: tp.deriv(g, W, step, stride, device=d),
+            "predict_linear": lambda d: tp.predict_linear(
+                g, W, step, 600.0, stride, device=d),
+            "holt_winters": lambda d: tp.holt_winters(
+                g, W, 0.3, 0.6, stride, device=d),
+        }
+        for name, call in calls.items():
+            got, want = call(cuda), call("cpu")
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            if name in _FAMILY_TOL:
+                np.testing.assert_allclose(got, want, equal_nan=True,
+                                           **_FAMILY_TOL[name])
+            else:
+                np.testing.assert_array_equal(got, want)
+
+
+def test_content_tier_hits_on_card(cuda):
+    """On the card an equal grid in a new object skips the host prep and
+    the upload through the content-hash tier; the answers are equal."""
+    from m3_tpu_torch.ops import temporal as tp
+
+    g = np.cumsum(np.random.default_rng(5).poisson(5.0, (300, 139)),
+                  axis=1).astype(np.float64)
+    misses = tp._DERIVED_METRICS.counter("misses").value()
+    hits = tp._DERIVED_METRICS.counter("hits").value()
+    a = tp.rate(g, 10, 10**10, 10**11, device=cuda)
+    b = tp.rate(g.copy(), 10, 10**10, 10**11, device=cuda)
+    c = tp.rate(g, 10, 10**10, 10**11, device="cpu")
+    assert tp._DERIVED_METRICS.counter("misses").value() == misses + 1
+    assert tp._DERIVED_METRICS.counter("hits").value() == hits + 1
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-8, equal_nan=True)
+
+
+def test_graphite_render_on_card_matches_cpu(cuda):
+    from m3_tpu_torch.metrics import carbon
+    from m3_tpu_torch.query.graphite import GraphiteEngine
+
+    series, t = promql_corpus(200, 29)
+    gseries = {b"bench.h%d.m" % i: {
+        "tags": carbon.path_to_tags(b"bench.h%d.m" % i), "t": t,
+        "v": series[sid]["v"]} for i, sid in enumerate(series)}
+    card = GraphiteEngine(DictStorage(gseries))
+    cpu = GraphiteEngine(DictStorage(gseries), device="cpu")
+    for target in ("movingAverage(bench.*.m, '5min')",
+                   "movingMedian(bench.*.m, '5min')",
+                   "movingMax(bench.*.m, 7)", "stdev(bench.*.m, 30)",
+                   "perSecond(bench.*.m)"):
+        before = wk.window_stat.launches
+        got = card.render(target, int(t[60]), int(t[-1]))
+        want = cpu.render(target, int(t[60]), int(t[-1]))
+        np.testing.assert_array_equal(np.isnan(got.values),
+                                      np.isnan(want.values))
+        np.testing.assert_allclose(got.values, want.values, rtol=1e-5,
+                                   atol=1e-8, equal_nan=True)
+        grew = wk.window_stat.launches > before
+        assert grew == target.startswith(("movingAverage", "movingMax",
+                                          "stdev")), target
+
+
+def test_placement_probe_measures_the_card(cuda):
+    from m3_tpu_torch.query.placement import QueryPlacement
+
+    p = QueryPlacement(cuda)
+    p._probe_link()
+    snap = p.snapshot()
+    assert snap["rtt_ms"] is not None and 0 < snap["rtt_ms"] < 1000
+    assert snap["d2h_bw_mb_s"] is not None and snap["d2h_bw_mb_s"] > 10
+    # Measured: the card at a large evaluation, the host at a tiny one.
+    assert p.choose(10**8, 10**6) is None
+    assert p.choose(10, 10) == torch.device("cpu")

@@ -37,10 +37,27 @@ from m3_tpu_torch.testing import DictStorage, promql_corpus
 
 series, t = promql_corpus(16, 11)
 for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])",
-          "max by (i) (irate(bench_metric[1m]))"):
+          "max by (i) (irate(bench_metric[1m]))", "deriv(bench_metric[5m])",
+          "predict_linear(bench_metric[5m], 600)", "changes(bench_metric[5m])",
+          "holt_winters(bench_metric[5m], 0.3, 0.6)", "resets(bench_metric[5m])",
+          "quantile_over_time(0.9, bench_metric[5m])"):
     blk = Engine(DictStorage(series), device="cpu").execute_range(
         q, int(t[30]), int(t[-1]), 30 * 10**9)
     ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
+
+from m3_tpu_torch.metrics import carbon
+from m3_tpu_torch.query.graphite import GraphiteEngine
+from m3_tpu_torch.query.placement import QueryPlacement
+
+gseries = {b"a.h%d.cpu" % i: {"tags": carbon.path_to_tags(b"a.h%d.cpu" % i),
+                              "t": t, "v": series[sid]["v"]}
+           for i, sid in enumerate(series)}
+for target in ("movingMedian(a.*.cpu, '5min')", "stdev(a.*.cpu, 10)",
+               "sumSeries(a.*.cpu)"):
+    blk = GraphiteEngine(DictStorage(gseries), device="cpu").render(
+        target, int(t[60]), int(t[-1]))
+    ok = ok and np.isfinite(blk.values).any()
+ok = ok and QueryPlacement("cpu").choose(10**6, 10**5) is None
 
 from m3_tpu_torch.query.storage import LocalStorage
 from m3_tpu_torch.storage.database import Database
@@ -95,11 +112,12 @@ print(json.dumps({"ok": bool(ok), "mods": mods}))
 
 
 def test_port_slice_imports_neither_jax_nor_m3_tpu():
-    """The ingest slice, a few Engine queries, the storage path (write,
-    tick, read and a LocalStorage query), a block merge and a guarded
-    decode under an injected fault in a fresh process; the Engine and the
-    Database also refuse to start without a card unless asked for the
-    CPU."""
+    """The ingest slice, a few Engine queries (the six functions of the
+    query path's last slice among them), Graphite renders and a placement
+    decision, the storage path (write, tick, read and a LocalStorage
+    query), a block merge and a guarded decode under an injected fault in
+    a fresh process; the Engine and the Database also refuse to start
+    without a card unless asked for the CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -116,6 +134,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from m3_tpu_torch.parallel.sharding import ShardSet
     from m3_tpu_torch.ops import series_agg, temporal
     from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.graphite import GraphiteEngine
     from m3_tpu_torch.testing import DictStorage
     from m3_tpu_torch.client.decode import decode_tile
     from m3_tpu_torch.storage.block import SealedBlock, encode_block
@@ -138,6 +157,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: Engine(DictStorage({})),
         lambda: temporal.rate(vals, 4, 10, 40),
         lambda: temporal.over_time(vals, 4, "sum"),
+        lambda: temporal.quantile_over_time(vals, 4, 0.5),
+        lambda: temporal.changes(vals, 4),
+        lambda: temporal.resets(vals, 4),
+        lambda: temporal.deriv(vals, 4, 10),
+        lambda: temporal.predict_linear(vals, 4, 10, 60.0),
+        lambda: temporal.holt_winters(vals, 4, 0.3, 0.6),
+        lambda: GraphiteEngine(DictStorage({})),
         lambda: series_agg.grouped_reduce(vals, np.zeros(4, int), 1, "sum"),
         lambda: Database(ShardSet(4)),
         lambda: Shard(0, ShardOptions()),

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from m3_tpu.query import Engine as JEngine
-from m3_tpu_torch.query.executor import Engine, QueryError
+from m3_tpu_torch.query.executor import Engine
 from m3_tpu_torch.testing import DictStorage, promql_corpus
 
 S = 1_000_000_000
@@ -176,19 +176,6 @@ def test_instant_query_matches_reference(mem):
     for q in ("rate(http_requests_total[5m])", "sum(memory_bytes)"):
         _same(eng.execute_instant(q, 7 * MIN), ref.execute_instant(q, 7 * MIN),
               q)
-
-
-@pytest.mark.parametrize("f", ["deriv", "changes", "resets",
-                               "holt_winters", "predict_linear",
-                               "quantile_over_time"])
-def test_unported_range_functions_raise_with_their_name(mem, f):
-    eng, _ = mem
-    args = {"holt_winters": "memory_bytes[5m], 0.5, 0.5",
-            "predict_linear": "memory_bytes[5m], 60",
-            "quantile_over_time": "0.5, memory_bytes[5m]"}.get(
-                f, "memory_bytes[5m]")
-    with pytest.raises(QueryError, match=f):
-        eng.execute_range(f"{f}({args})", 5 * MIN, 9 * MIN, 30 * S)
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
