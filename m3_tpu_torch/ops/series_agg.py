@@ -153,6 +153,73 @@ def topk_mask(values: np.ndarray, group_ids: np.ndarray, n_groups: int,
     return keep
 
 
+# ------------------------------------------------- packed rank selection
+#
+# Group-packed forms of topk_mask / grouped_quantile for the whole-plan
+# compiler (parallel/compile.py; m3_tpu/ops/series_agg.py's
+# packed_*_math): bind() packs each group's rows contiguously into a
+# [G_pad, Smax_pad] permutation (original row order within the group, -1
+# padding), the device sorts along the packed axis, and only the plan's
+# value planes move. Every sort is stable, as jnp's are, and treats -0.0
+# and +0.0 as equal keys, as XLA's sort does.
+
+
+def packed_gather_math(values, perm, g_pad: int, smax_pad: int):
+    """[S_pad, T] plane + flat perm [G_pad*Smax_pad] -> packed
+    [G_pad, Smax_pad, T] volume with NaN at unused slots."""
+    valid = (perm >= 0)[:, None]
+    packed = torch.where(valid, values[perm.clamp(min=0)], float("nan"))
+    return packed.reshape(g_pad, smax_pad, values.shape[-1])
+
+
+def packed_topk_keep_math(packed_hi, packed_lo, k, largest: bool):
+    """Per-step membership mask in packed space: True where the slot's
+    value is among its group's k best at that step (ties broken by slot
+    order — original row order within the group, the same stable-argsort
+    tie-break as topk_mask).
+
+    Membership is DISCRETE, so ranking must not lose to f32 granularity:
+    callers pass the value as an exact double-f32 split (hi = f32(v),
+    lo = f32(v - hi) — zeros when the plane is f32-native; |lo| <
+    ulp(hi)/2, so v-order IS lexicographic (hi, lo)-order), and the
+    rank comes from a two-pass stable sort — secondary key lo first,
+    then primary key hi — which is exactly the interpreter's f64 sort
+    for every value the split round-trips. Sorting hi alone would let
+    sub-ulp counter differences (64 at 1e9) scramble the surviving
+    series set."""
+    finite = torch.isfinite(packed_hi)
+    s = -1.0 if largest else 1.0   # -v = (-hi) + (-lo): exact either way
+    hi_key = torch.where(finite, s * packed_hi, float("inf"))
+    lo_key = torch.where(finite, s * packed_lo, 0.0)
+    order1 = torch.argsort(lo_key, dim=1, stable=True)
+    hi_by_lo = torch.gather(hi_key, 1, order1)
+    order2 = torch.argsort(hi_by_lo, dim=1, stable=True)
+    order = torch.gather(order1, 1, order2)
+    ranks = torch.argsort(order, dim=1)
+    return (ranks < k) & finite
+
+
+def packed_quantile_math(packed, q):
+    """promql quantile() over the packed volume: linearly-interpolated
+    quantile at rank q*(n-1) across each group's slots, per step
+    (grouped_quantile's np.nanquantile semantics, on the device)."""
+    smax = packed.shape[1]
+    finite = torch.isfinite(packed)
+    cnt = finite.sum(1)
+    s = torch.sort(torch.where(finite, packed, float("inf")), dim=1,
+                   stable=True).values
+    pos = q * (cnt - 1).to(F32)
+    lo = torch.floor(pos).to(torch.int64).clamp(0, smax - 1)
+    hi = (lo + 1).clamp(0, smax - 1)
+    frac = pos - lo.to(F32)
+    zs = torch.where(torch.isfinite(s), s, 0.0)
+    v_lo = torch.gather(zs, 1, lo[:, None, :])[:, 0, :]
+    v_hi = torch.where(hi < cnt, torch.gather(zs, 1, hi[:, None, :])[:, 0, :],
+                       v_lo)
+    out = v_lo + (v_hi - v_lo) * frac
+    return torch.where(cnt > 0, out, float("nan"))
+
+
 def count_values(values: np.ndarray, group_ids: np.ndarray,
                  n_groups: int) -> dict:
     """promql count_values(): per (group, step, value) counts; returns

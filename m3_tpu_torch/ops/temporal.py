@@ -540,7 +540,9 @@ def _window_stat_strided(resid, W: int, stat: str, stride: int):
     if resid.shape[-1] < W:
         empty = resid.new_zeros((resid.shape[0], 0))
         return empty, empty.clone()
-    return window_kernels.window_stat(resid, W, stride, stat)
+    # The compiled plan hands in column slices of its padded planes: one
+    # copy makes them the contiguous rows the kernel reads.
+    return window_kernels.window_stat(resid.contiguous(), W, stride, stat)
 
 
 def _finish_over_time(xp, kind: str, stat, cnt, b):
@@ -819,3 +821,102 @@ def holt_winters(grid: np.ndarray, W: int, sf: float, tf: float,
     resid, base, _ = _resid_args(grid, resolve(device))
     out = _fetch(_holt_winters_fn(W, float(sf), float(tf), stride)(resid))
     return out + base[:, None]
+
+
+# --------------------------------------------------- traced input preps
+#
+# Device twins of the HOST preps (center / rate_inputs) and of the
+# host-finished irate/idelta and quantile_over_time, for planes that only
+# exist ON DEVICE — the whole-plan compiler (parallel/compile.py)
+# evaluates an inner expression inside its program and re-windows its
+# output, so nothing may round-trip to the host there (on the card a
+# host sync would break the CUDA-graph capture). The host versions stay
+# the exact-f64 path for staged selector grids; these run at the plane's
+# own f32 precision, which is why the plan lowering only admits them over
+# difference-space planes (query/plan.py bails with F64_ARITH on
+# absolute-magnitude composite subquery planes). Counterparts of
+# m3_tpu/ops/temporal.py's center_math, rate_inputs_math, instant_math
+# and quantile_ot_math.
+
+
+def center_math(plane):
+    """Device center(): (residual, per-row baseline = first finite
+    value, 0 for an empty row). The baseline choice is arbitrary (every
+    consumer adds it back or is shift-invariant), so f32 costs nothing
+    beyond the plane's own f32."""
+    finite = torch.isfinite(plane)
+    T = plane.shape[-1]
+    first = torch.where(finite, torch.arange(T, device=plane.device),
+                        T).amin(-1)
+    picked = torch.gather(torch.where(finite, plane, 0.0), -1,
+                          first.clamp(max=T - 1)[..., None])[..., 0]
+    base = torch.where(first < T, picked, 0.0)
+    return plane - base[..., None], base
+
+
+def rate_inputs_math(plane, is_counter: bool):
+    """Device rate_inputs(): (adj, finite, grid32) with the same per-cell
+    semantics as _host_diff_grid — adj[i] = v[i] - prev_valid, a counter
+    reset (d < 0) contributes v[i] itself, cells with no previous valid
+    sample (and invalid cells) contribute 0. The reference's
+    associative_scan(maximum) is torch.cummax."""
+    finite = torch.isfinite(plane)
+    T = plane.shape[-1]
+    idx = torch.where(finite, torch.arange(T, device=plane.device), -1)
+    run = torch.cummax(idx, dim=-1).values
+    prev_run = torch.cat([torch.full_like(run[..., :1], -1), run[..., :-1]],
+                         dim=-1)
+    z = torch.where(finite, plane, 0.0)
+    prev_val = torch.gather(z, -1, prev_run.clamp(0, T - 1))
+    d = z - prev_val
+    adj = torch.where(d < 0, z, d) if is_counter else d
+    adj = torch.where(finite & (prev_run >= 0), adj, 0.0)
+    return adj, finite, z
+
+
+def instant_math(resid, grid32, *, W: int, step_s: float, is_rate: bool,
+                 stride: int = 1):
+    """Device irate()/idelta() (temporal/rate.go irateFn): last two valid
+    samples per window. Differences compute in RESIDUAL space (exact for
+    the small consecutive deltas even at 1e9 counter magnitudes); only a
+    counter reset's restart value reads the absolute f32 plane, where
+    post-reset values are small. The reset COMPARE is residual-space too
+    (shift-invariant, so it agrees with the interpreter's f64 compare
+    wherever the residuals are exact)."""
+    finite = torch.isfinite(resid)
+    mvol = _window_volume(finite, W, stride)
+    Wr = torch.arange(W, device=resid.device)
+    last_i = torch.where(mvol, Wr, -1).amax(-1)
+    prev_i = torch.where(mvol & (Wr < last_i[..., None]), Wr, -1).amax(-1)
+    ok = prev_i >= 0
+    rvol = _window_volume(torch.where(finite, resid, 0.0), W, stride)
+    r_last = _take_w(rvol, last_i)
+    r_prev = _take_w(rvol, prev_i)
+    if not is_rate:
+        return torch.where(ok, r_last - r_prev, float("nan"))
+    g_last = _take_w(_window_volume(grid32, W, stride), last_i)
+    dv = torch.where(r_last < r_prev, g_last, r_last - r_prev)
+    dt = (last_i - prev_i).to(F32) * step_s
+    return torch.where(ok, dv / torch.where(ok, dt, 1.0), float("nan"))
+
+
+def quantile_ot_math(resid, base32, *, W: int, q: float, stride: int = 1):
+    """Device quantile_over_time(): promql's linearly-interpolated window
+    quantile at rank q*(n-1), computed in residual space (quantiles are
+    shift-equivariant) with the per-row baseline added back. The sort is
+    stable, as jnp.argsort is; q rounds to f32 once."""
+    vol = _window_volume(resid, W, stride)
+    mask = torch.isfinite(vol)
+    cnt = mask.sum(-1)
+    order = torch.argsort(torch.where(mask, vol, float("inf")), dim=-1,
+                          stable=True)
+    pos = float(np.float32(q)) * (cnt - 1).to(F32)
+    lo = torch.floor(pos).to(torch.int64).clamp(0, W - 1)
+    hi = (lo + 1).clamp(0, W - 1)
+    frac = pos - lo.to(F32)
+    zvol = torch.where(mask, vol, 0.0)
+    v_lo = _take_w(zvol, _take_w(order, lo))
+    v_hi = torch.where(hi < cnt, _take_w(zvol, _take_w(order, hi)), v_lo)
+    out = v_lo + (v_hi - v_lo) * frac + base32[..., None]
+    return torch.where(cnt > 0, out, float("nan"))
+

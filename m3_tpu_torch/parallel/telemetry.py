@@ -1,10 +1,22 @@
-"""Runtime telemetry counters: shape buckets and host<->device transfers
-(port of the host counters of m3_tpu/parallel/telemetry.py; its JIT
-builder and plan-cache hooks time XLA compiles and have no counterpart
-here, where the kernels are built once per process).
+"""Runtime telemetry counters: shape buckets, host<->device transfers,
+the plan cache and its builds, plan fallbacks and the compute-fault plane
+(port of m3_tpu/parallel/telemetry.py).
 
 Everything exports through `utils.instrument` under the `telemetry.*`
 scope and tags the active span via `utils.tracing.count_cost`.
+
+  BuildTimed          wraps a freshly built executable so its FIRST call
+                      — where the build happens: on the card a warm-up
+                      run and a CUDA-graph capture, on the CPU one eager
+                      run — is timed into `telemetry.build.build_s` (the
+                      counterpart of the reference's jit_builder /
+                      _CompileTimed, which time an XLA compile).
+
+  plan_cache_*        compiled-plan executables served from the plan
+                      cache (hits) or built (misses, with build wall).
+
+  plan_fallback       one query that missed the compiled route, tagged
+                      with its typed reason and scope.
 
   record_bucket(path, key)
                       pow2 shape-bucket tracking for the batched decode
@@ -20,7 +32,7 @@ scope and tags the active span via `utils.tracing.count_cost`.
                       transitions, quarantined keys and OOM reclaims.
                       Tags are closed sets: `route` is a guard route name
                       (codec.encode, codec.decode, codec.hash,
-                      block.decode, temporal.*), `kind` a ComputeError
+                      block.decode, temporal.*, plan), `kind` a ComputeError
                       kind (compile, oom, kernel, timeout), `state` a
                       breaker state."""
 
@@ -28,6 +40,8 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
+from typing import Callable
 
 from ..utils import tracing
 from ..utils.instrument import ROOT
@@ -35,6 +49,84 @@ from ..utils.instrument import ROOT
 _SCOPE = ROOT.sub_scope("telemetry")
 _XFER = _SCOPE.sub_scope("transfer")
 _BUCKETS = _SCOPE.sub_scope("shape_bucket")
+_BUILD = _SCOPE.sub_scope("build")
+
+# Build wall time in seconds; boundaries skewed high — a warm-up plus a
+# graph capture is milliseconds to seconds, not a sub-ms request.
+_BUILD_BOUNDS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+class BuildTimed:
+    """Wrap a freshly built executable so its FIRST call (where the build
+    happens) is timed; later calls pass through one attribute check.
+    Thread-safe in the benign direction: a race times the build twice,
+    never misses it."""
+
+    __slots__ = ("fn", "name", "done")
+
+    def __init__(self, fn: Callable, name: str):
+        self.fn = fn
+        self.name = name
+        self.done = False
+
+    def __call__(self, *args, **kwargs):
+        if self.done:
+            return self.fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        self.done = True
+        _BUILD.counter("builds").inc()
+        _BUILD.histogram("build_s", _BUILD_BOUNDS).record(dt)
+        _SCOPE.sub_scope("build", builder=self.name).counter("builds").inc()
+        tracing.count_cost("build")
+        return out
+
+
+# ------------------------------------------------------------ plan cache
+
+_PLAN_CACHE = _SCOPE.sub_scope("plan_cache")
+
+
+def plan_cache_hit():
+    """One compiled-plan executable served from the plan cache."""
+    _PLAN_CACHE.counter("hits").inc()
+
+
+def plan_cache_miss():
+    """One plan-cache miss: an executable is about to be built (its wall
+    time lands via plan_compile_recorded)."""
+    _PLAN_CACHE.counter("misses").inc()
+
+
+def plan_compile_recorded(seconds: float):
+    """Wall time of one executable's build and first run (a plan-cache
+    miss), tagged onto the active span so the slow-query log can
+    attribute cold builds."""
+    _PLAN_CACHE.counter("compiles").inc()
+    _PLAN_CACHE.histogram("compile_s", _BUILD_BOUNDS).record(seconds)
+    tracing.count_cost("plan_compile")
+
+
+# ---------------------------------------------------------- plan fallbacks
+
+_PLAN_FALLBACK = _SCOPE.sub_scope("plan_fallback")
+
+
+def plan_fallback(reason: str, scope: str = "structural"):
+    """One query that missed the compiled whole-plan route, tagged with
+    its typed `query.plan.FallbackReason` VALUE (a closed set — raw query
+    strings or other unbounded values must never ride as tag values) and
+    its SCOPE: "structural" (the query shape is outside the compiled
+    surface) vs "runtime" (a data-dependent or operational routing
+    decision — below-floor, the route turned off, a backend gap; see
+    query.plan.fallback_scope). The split keeps corpus.coverage's
+    structural re-lowering consistent with recorded routes: a below-floor
+    miss on a small-series corpus is not a lowering gap."""
+    _SCOPE.sub_scope("plan_fallback", reason=reason,
+                     scope=scope).counter("count").inc()
+    _PLAN_FALLBACK.counter("total").inc()
+    tracing.count_cost("plan_fallback")
 
 
 def count_h2d(nbytes: int):

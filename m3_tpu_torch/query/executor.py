@@ -14,15 +14,23 @@ Matrix selectors grid at gcd(step, range) so sub-step samples inside a
 window survive consolidation (the reference's block consolidation has the
 same step-alignment semantics, src/query/ts/values.go).
 
-An engine given a QueryPlacement (query/placement.py) makes where the
-range functions and the large grouped aggregations run a measured
-choice: an engine on the card may then place an evaluation on the host,
-where the same functions run with device="cpu". Without one, the
-default, everything runs on the engine's device.
+The default route is the reference's: a query whose plan lowers
+(query/plan.py), binds and has at least plan.PLAN_MIN_CELLS grid cells
+runs as ONE compiled program on the engine's device
+(parallel/compile.py: a CUDA graph on the card); every other query takes
+the per-node interpreter below, recording the typed
+`plan.FallbackReason` (`last_route()`, the slow-query ring, the
+`telemetry.plan_fallback` counters, EXPLAIN). `execute_range_ref` is the
+interpreter alone: the oracle the compiled route is held against.
 
-Not in this port yet: the whole-plan compiled route (the reference's
-_try_plan), the mesh-sharded aggregation, EXPLAIN/ANALYZE and the query
-corpus recorder."""
+An engine given a QueryPlacement (query/placement.py) makes where the
+interpreter's range functions and large grouped aggregations run a
+measured choice: an engine on the card may then place an evaluation on
+the host, where the same functions run with device="cpu". Without one,
+the default, everything runs on the engine's device. The compiled route
+ignores placement, as the reference's does.
+
+Not in this port yet: the mesh-sharded aggregation."""
 
 from __future__ import annotations
 
@@ -36,6 +44,9 @@ import numpy as np
 
 from ..device import resolve
 from ..ops import series_agg, temporal
+from . import corpus as qcorpus
+from . import explain as qexplain
+from . import plan as qplan
 from . import promql
 from ..utils import limits as xlimits
 from ..utils.retry import DeadlineExceeded
@@ -62,13 +73,6 @@ DEFAULT_SUBQUERY_RES_NS = 15 * 1_000_000_000
 
 Scalar = np.ndarray  # [steps] float
 Value = Union[Block, np.ndarray, float]
-
-# The route every query of this port takes (the slow-query log's record,
-# which adds the query's placements: "device", "host", "mixed", or None
-# when nothing was placed).
-_ROUTE = {"route": "interpreter", "fallback_reason": None,
-          "fallback_detail": None}
-
 
 class QueryError(ValueError):
     pass
@@ -243,32 +247,41 @@ class Engine:
             self._placement.observe(placed, cells, nbytes, seconds)
 
     def _route(self) -> dict:
-        """This thread's last query's route record."""
+        """This thread's last query's route record (`last_route()`) with
+        the query's placements: "device", "host", "mixed", or None when
+        nothing was placed."""
         sides = getattr(self._local, "placements", None) or set()
         placement = (None if not sides else "mixed" if len(sides) > 1
                      else next(iter(sides)))
-        return dict(_ROUTE, placement=placement)
+        return dict(self.last_route() or {}, placement=placement)
 
     def execute_range(self, query: str, start_ns: int, end_ns: int,
-                      step_ns: int, ast: Optional[Node] = None) -> Block:
+                      step_ns: int, ast: Optional[Node] = None,
+                      use_plan: bool = True) -> Block:
         from ..utils.instrument import ROOT
 
         ROOT.counter("query.executed").inc()
         timer = ROOT.timer("query.latency_s")
         sp = span("query.execute_range", query=query)
         # A failure before this query's scope runs must not inherit the
-        # previous query's totals on this reused serving thread.
+        # previous query's totals on this reused serving thread — same
+        # for the route record (slow-ring + corpus attribution).
         xlimits.reset_last_totals()
         self._local.placements = set()
+        self._local.route_info = None
         t0 = time.perf_counter_ns()
         # Slow-query accounting: typed sheds record regardless of
         # duration; completed queries record past the threshold, with
         # cost attribution from the span (QueryScope exit annotates it)
-        # or, unsampled, the thread-local last-scope totals.
+        # or, unsampled, the thread-local last-scope totals. Every entry
+        # carries the route + typed fallback reason, so a slow
+        # interpreted query tells the operator WHY it missed the
+        # compiled path.
         try:
             with timer, sp:
                 result = self._execute_range(query, start_ns, end_ns,
-                                             step_ns, ast=ast)
+                                             step_ns, ast=ast,
+                                             use_plan=use_plan)
         except xlimits.ResourceExhausted:
             SLOW_QUERIES.maybe("query", query, time.perf_counter_ns() - t0,
                                costs=xlimits.last_scope_totals(),
@@ -291,10 +304,16 @@ class Engine:
                                   if sp.sampled
                                   else xlimits.last_scope_totals()),
                            route=self._route(), trace_id=sp.trace_id or None)
+        # Opt-in corpus sampler (query/corpus.py): one module-global read
+        # when no recorder is configured. Sampled queries materialize the
+        # lazy result inside the hook, so recorded latency includes the
+        # d2h transfer (symmetric with the eager interpreter route).
+        qcorpus.maybe_record(query, self.last_route(), result, t0, step_ns)
         return result
 
     def _execute_range(self, query: str, start_ns: int, end_ns: int,
-                       step_ns: int, ast: Optional[Node] = None) -> Block:
+                       step_ns: int, ast: Optional[Node] = None,
+                       use_plan: bool = True) -> Block:
         # A caller that parsed already hands the node in via `ast`; the
         # query STRING still tags the spans.
         if ast is None:
@@ -311,19 +330,141 @@ class Engine:
                 child = self.cost_enforcer.child(self.per_query_cost_limit)
                 self._local.enforcer = child
                 try:
-                    val = self._eval(ast, params)
+                    val = self._eval_root(ast, params, use_plan)
                 finally:
                     self._local.enforcer = None
                     child.release(child.current())
             else:
-                val = self._eval(ast, params)
+                val = self._eval_root(ast, params, use_plan)
             return _to_block(val, params)
 
     def execute_instant(self, query: str, t_ns: int,
                         ast: Optional[Node] = None) -> Block:
         return self.execute_range(query, t_ns, t_ns, 1_000_000_000, ast=ast)
 
+    def execute_range_ref(self, query: str, start_ns: int, end_ns: int,
+                          step_ns: int, ast: Optional[Node] = None) -> Block:
+        """The retained per-node interpreter — the oracle the compiled
+        whole-plan route (query/plan.py -> parallel/compile.py) is held
+        against. Identical to execute_range with the plan route turned
+        off: every node evaluates through the _eval tree-walk below."""
+        return self.execute_range(query, start_ns, end_ns, step_ns, ast=ast,
+                                  use_plan=False)
+
     # -- evaluation --------------------------------------------------------
+
+    def _eval_root(self, node: Node, params: QueryParams,
+                   use_plan: bool) -> Value:
+        """Root dispatch: run the WHOLE physical plan as one program when
+        every node lowers (query/plan.py), falling back to the
+        interpreter otherwise — so a query outside the compiled surface
+        behaves exactly as before. The route (and the fallback reason) is
+        tagged onto the query span."""
+        if use_plan:
+            # Selector overlay for the plan attempt: bind() fetches every
+            # selector through the normal charged paths; if the plan then
+            # falls back (below floor, backend gap), the interpreter
+            # re-evaluation below reuses those exact blocks instead of
+            # re-fetching (and re-charging) the storage layer.
+            self._local.sel_overlay = {}
+            try:
+                out = self._try_plan(node, params)
+                if out is not None:
+                    return out
+                return self._eval_interp(node, params)
+            finally:
+                self._local.sel_overlay = None
+        # Plan route off (execute_range_ref): recorded for the slow-ring
+        # and corpus surfaces, no span tag (only real plan ATTEMPTS tag
+        # their route).
+        self._local.route_info = {
+            "route": "interpreter",
+            "fallback_reason": qplan.FallbackReason.DISABLED.value,
+            "fallback_detail": "plan route disabled",
+        }
+        return self._eval_interp(node, params)
+
+    def _eval_interp(self, node: Node, params: QueryParams) -> Value:
+        """Interpreter evaluation, staged under ANALYZE when a context
+        is active (one thread-local read otherwise)."""
+        actx = qexplain.current()
+        if actx is None:
+            return self._eval(node, params)
+        with actx.stage("interpreter_eval"):
+            return self._eval(node, params)
+
+    def _try_plan(self, node: Node, params: QueryParams) -> Optional[Value]:
+        from ..parallel import compile as pcompile
+        from ..parallel import telemetry
+        from ..utils.instrument import ROOT
+
+        plan, err, slot_values = qplan.lower_and_collect(
+            node, params, self.lookback_ns)
+        if plan is None:
+            telemetry.plan_fallback(err.reason.value,
+                                    qplan.fallback_scope(err.reason.value))
+            self._set_route("interpreter", err.reason.value, str(err))
+            return None
+        # bind() fetches + grids every selector through the SAME cached
+        # selector paths the interpreter uses and runs the host tag
+        # algebra; QueryError (matching violations) carries the
+        # interpreter's exact semantics and propagates. Under ANALYZE
+        # the bind (fetch + host tag algebra) is its own stage.
+        actx = qexplain.current()
+        if actx is None:
+            bound = qplan.bind(plan, self, params, slot_values)
+        else:
+            with actx.stage("bind"):
+                bound = qplan.bind(plan, self, params, slot_values)
+        if bound.total_cells < qplan.PLAN_MIN_CELLS:
+            # Tiny queries keep the interpreter's exact-f64 finishes; the
+            # grids just fetched ride the selector overlay, so the
+            # fallback evaluation below re-reads them for free.
+            ROOT.counter("query.plan.below_floor").inc()
+            telemetry.plan_fallback(qplan.FallbackReason.BELOW_FLOOR.value,
+                                    "runtime")
+            self._set_route("interpreter",
+                            qplan.FallbackReason.BELOW_FLOOR.value,
+                            f"{bound.total_cells} cells < "
+                            f"{qplan.PLAN_MIN_CELLS} floor")
+            return None
+        try:
+            values, tags, fetch = pcompile.execute(bound, self.device)
+        except pcompile.PlanFallback as e:
+            ROOT.counter("query.plan.fallback").inc()
+            telemetry.plan_fallback(e.reason.value,
+                                    qplan.fallback_scope(e.reason.value))
+            self._set_route("interpreter", e.reason.value, str(e))
+            return None
+        ROOT.counter("query.plan.executed").inc()
+        self._set_route("compiled", "", "")
+        if fetch is None:
+            return values          # [steps] scalar; _to_block wraps it
+        return LazyBlock(params.meta(), tags, fetch)
+
+    def _set_route(self, route: str, reason: str, detail: str) -> None:
+        """Record the route decision: span tags (route "plan" for the
+        compiled path) + the thread-local route record `last_route()`
+        reads (the slow ring and the corpus sampler)."""
+        from ..utils import tracing
+
+        self._local.route_info = {
+            "route": route,
+            "fallback_reason": reason or None,
+            "fallback_detail": detail or None,
+        }
+        cur = getattr(tracing.TRACER._local, "current", None)
+        if cur is not None:
+            cur.set_tag("route", "plan" if route == "compiled" else route)
+            if reason:
+                cur.set_tag("plan_fallback", reason)
+
+    def last_route(self) -> Optional[dict]:
+        """The route record of this THREAD's most recent query: route
+        ("compiled"/"interpreter"), typed fallback_reason (a
+        `plan.FallbackReason` value) and a human detail — None when no
+        query ran on this thread yet."""
+        return getattr(self._local, "route_info", None)
 
     def _eval(self, node: Node, params: QueryParams) -> Value:
         if isinstance(node, NumberLiteral):
@@ -393,10 +534,24 @@ class Engine:
         return Block(params.meta(), blk.series_tags,
                      np.repeat(np.asarray(blk.values), params.steps, axis=1))
 
+    def _sel_overlay_get(self, role: str, sel: VectorSelector,
+                         params: QueryParams):
+        """One-query selector memo (plan bind -> interpreter fallback):
+        returns (key, hit). Populated only while a plan attempt is live;
+        interpreter-only queries (execute_range_ref) never see it."""
+        overlay = getattr(self._local, "sel_overlay", None)
+        if overlay is None:
+            return None, None
+        key = (role, sel, params.start_ns, params.end_ns, params.step_ns)
+        return key, overlay.get(key)
+
     def _eval_instant_selector(self, sel: VectorSelector,
                                params: QueryParams) -> Block:
         if sel.at_ns is not None:
             return self._pin_at(sel, sel, params)
+        key, hit = self._sel_overlay_get("instant", sel, params)
+        if hit is not None:
+            return hit
         off = sel.offset_ns
         meta = params.meta()
         series = self._fetch(sel, params.start_ns - self.lookback_ns - off,
@@ -404,13 +559,19 @@ class Engine:
         shifted = BlockMeta(meta.start_ns - off, meta.step_ns, meta.steps)
         tags_list, values = self._consolidate_cached(
             sel, series, shifted, self.lookback_ns)
-        return Block(meta, tags_list, values)
+        out = Block(meta, tags_list, values)
+        if key is not None:
+            self._local.sel_overlay[key] = out
+        return out
 
     def _eval_range_selector(self, sel: VectorSelector, params: QueryParams
                              ) -> Tuple[Block, int, int]:
         """Fetch + grid a matrix selector: returns (extended block at the
         window grid, W cells per window, stride to subsample back to the
         query step)."""
+        key, hit = self._sel_overlay_get("range", sel, params)
+        if hit is not None:
+            return hit
         off = sel.offset_ns
         wgrid = math.gcd(params.step_ns, sel.range_ns)
         W = sel.range_ns // wgrid
@@ -425,7 +586,10 @@ class Engine:
         # latest sample within its grid cell only.
         tags_list, values = self._consolidate_cached(
             sel, series, ext_meta, wgrid)
-        return Block(ext_meta, tags_list, values), W, stride
+        out = (Block(ext_meta, tags_list, values), W, stride)
+        if key is not None:
+            self._local.sel_overlay[key] = out
+        return out
 
     def _consolidate_cached(self, sel: VectorSelector, series: dict,
                             meta: BlockMeta, lookback_ns: int):
@@ -438,13 +602,18 @@ class Engine:
 
         key = (promql.selector_matchers(sel),
                meta.start_ns, meta.step_ns, meta.steps, lookback_ns)
+        actx = qexplain.current()
         hit = self._grid_cache.get(key, series)
         if hit is not None:
             ROOT.counter("query.grid_cache.hit").inc()
             tracing.count_cost("grid_cache_hit")
+            if actx is not None:
+                actx.event("grid_cache_hit")
             return hit
         ROOT.counter("query.grid_cache.miss").inc()
         tracing.count_cost("grid_cache_miss")
+        if actx is not None:
+            actx.event("grid_cache_miss")
         tags_list, values = consolidate_series(series, meta, lookback_ns)
         self._grid_cache.put(key, series, tags_list, values)
         return tags_list, values

@@ -12,7 +12,10 @@ held to the per-window reorder bound of m3_tpu_torch.testing.
 window_reorder_bounds. Engine queries on the card against device="cpu"
 use the oracle tolerance rtol 1e-5, atol 1e-8. The storage node's tests
 hold a Database on the card against device="cpu" bit for bit, the seal's
-retained tensors against the budget, and a decode fault to raising."""
+retained tensors against the budget, and a decode fault to raising. The
+compiled plan route's tests hold each captured graph's replay to its body
+run eagerly on the card bit for bit, and its answers to the CPU plan
+route's under the oracle tolerance."""
 
 import numpy as np
 import pytest
@@ -591,3 +594,117 @@ def test_placement_probe_measures_the_card(cuda):
     # Measured: the card at a large evaluation, the host at a tiny one.
     assert p.choose(10**8, 10**6) is None
     assert p.choose(10, 10) == torch.device("cpu")
+
+
+# -- the compiled plan route: one CUDA graph per plan shape ---------------
+
+PLAN_QUERIES = ("sum by (host) (rate(bench_requests[5m]))",
+                "avg_over_time(bench_requests[5m])",
+                "quantile_over_time(0.9, bench_requests[5m])",
+                "topk(3, irate(bench_requests[1m]))",
+                "max_over_time(rate(bench_requests[5m])[10m:1m])")
+
+
+def _plan_engines(n=300, seed=17):
+    series, t = promql_corpus(n, seed, hosts=20, metric=b"bench_requests")
+    st = DictStorage(series)
+    return Engine(st), Engine(st, device="cpu"), int(t[30]), int(t[-1])
+
+
+def test_plan_replay_equals_eager_and_cpu(cuda):
+    """Each query takes the compiled route on the card; its executable is
+    a captured CUDA graph whose replay equals the same body run eagerly
+    on the card bit for bit, and the answers equal the CPU plan route's
+    (rtol 1e-5, atol 1e-8). The window kernel launches inside the graph
+    of an *_over_time (but not quantile_over_time's)."""
+    from m3_tpu_torch.parallel import compile as pcompile
+
+    card, cpu, start, end = _plan_engines()
+    for q in PLAN_QUERIES:
+        before = wk.window_stat.launches
+        got = card.execute_range(q, start, end, 30 * 10**9)
+        assert card.last_route()["route"] == "compiled", q
+        want = cpu.execute_range(q, start, end, 30 * 10**9)
+        assert [x.id() for x in got.series_tags] == [
+            x.id() for x in want.series_tags], q
+        np.testing.assert_allclose(got.values, want.values, rtol=1e-5,
+                                   atol=1e-8, equal_nan=True, err_msg=q)
+        grew = wk.window_stat.launches > before
+        assert grew == q.startswith(("avg_", "max_")), q
+    on_card = [e for label, e in pcompile.executables()
+               if label.endswith(":cuda")]
+    assert len(on_card) >= len(PLAN_QUERIES)
+    for exe in on_card:
+        assert exe.graph is not None and exe.replays >= 1
+        assert exe.replay_matches_eager()
+
+
+def test_plan_lazy_blocks_of_one_executable_keep_their_answers(cuda):
+    """Two queries of one plan shape replay one graph; read in reverse
+    order, each LazyBlock still holds its own answer."""
+    a_series, t = promql_corpus(300, 17, hosts=20, metric=b"bench_requests")
+    b_series, _ = promql_corpus(300, 18, hosts=20, metric=b"other")
+    st = DictStorage({**a_series, **b_series})
+    card, cpu = Engine(st), Engine(st, device="cpu")
+    start, end, step = int(t[30]), int(t[-1]), 30 * 10**9
+    qa = "sum by (host) (rate(bench_requests[5m]))"
+    qb = "sum by (host) (rate(other[5m]))"
+    misses = card.execute_range(qa, start, end, step)
+    first = card.execute_range(qa, start, end, step)
+    second = card.execute_range(qb, start, end, step)
+    vb, va = second.values, first.values
+    np.testing.assert_array_equal(va, misses.values)
+    for vals, q in ((va, qa), (vb, qb)):
+        np.testing.assert_allclose(
+            vals, cpu.execute_range(q, start, end, step).values, rtol=1e-5,
+            atol=1e-8, equal_nan=True)
+    assert not np.array_equal(va, vb, equal_nan=True)
+
+
+def test_plan_tenant_eviction_frees_the_graph(cuda):
+    """The `plan` tenant of the shared budget charges each executable's
+    pool and static inputs; its evict-one drops the least recently used
+    executable and releases its graph."""
+    from m3_tpu_torch.parallel import compile as pcompile
+    from m3_tpu_torch.utils import hbm
+
+    pcompile.clear()
+    card, _, start, end = _plan_engines()
+    for q in PLAN_QUERIES[:3]:
+        card.execute_range(q, start, end, 30 * 10**9).values
+    cached = [e for _, e in pcompile.executables()]
+    assert len(cached) == 3 and all(e.charged > 0 for e in cached)
+    budget = hbm.shared_budget()
+    total = budget.usage()["plan"]
+    assert total == sum(e.charged for e in cached)
+    oldest = cached[0]
+    freed = pcompile._evict_one_plan()
+    assert freed > 0 and oldest.graph is None and oldest.charged == 0
+    assert budget.usage()["plan"] == total - freed
+    assert len(pcompile.executables()) == 2
+    pcompile.clear()
+    assert budget.usage()["plan"] == 0
+
+
+def test_plan_fault_on_card_raises_typed_and_quarantines(cuda):
+    """An injected device fault on the `plan` route raises a typed
+    KernelFault (the port never falls back to the interpreter there) and
+    quarantines the shape bucket, which then raises at once."""
+    from m3_tpu_torch.parallel import guard
+    from m3_tpu_torch.testing import faultcomp
+
+    card, _, start, end = _plan_engines()
+    q = "avg_over_time(bench_requests[5m])"
+    guard.reset()
+    try:
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=1, dispatch_raise=1.0, route_filter="plan")):
+            with pytest.raises(guard.KernelFault):
+                card.execute_range(q, start, end, 30 * 10**9)
+            assert guard.quarantined_keys("plan")
+            with pytest.raises(guard.KernelFault, match="quarantined"):
+                card.execute_range(q, start, end, 30 * 10**9)
+    finally:
+        guard.reset()
+    card.execute_range(q, start, end, 30 * 10**9).values
+    assert card.last_route()["route"] == "compiled"

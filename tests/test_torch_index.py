@@ -3,16 +3,16 @@ m3_tpu_torch.index against m3_tpu.index on the same documents, and a
 Database with its namespace index enabled holding the reference
 benchmark's PromQL corpus (written through write_batch with tags, then
 sealed), queried through query_ids, aggregate_tags and
-Engine(LocalStorage(db), device="cpu").execute_range against
+Engine(LocalStorage(db), device="cpu").execute_range_ref against
 m3_tpu.query.Engine(LocalStorage(ref_db), mesh=None).execute_range_ref
-over the same writes.
+over the same writes (each package's interpreter: these queries take the
+compiled route by default, which tests/test_torch_plan_compile.py holds).
 
 Index answers (id lists, tag sets) must be identical. Query answers must
 give the same series tags in the same order, NaN at the same cells, and
 values within rtol 1e-5, atol 1e-8 (the oracle tolerance of bench.py's
 compiled-vs-interpreter check, as tests/test_torch_query.py uses).
-mesh=None keeps the reference on one device and execute_range_ref is its
-interpreter, the route the port has.
+mesh=None keeps the reference on one device.
 
 The port's block cache for this module admits a block at its first touch
 (admit_after=1): every read here is a whole-block decode and then hits,
@@ -195,7 +195,7 @@ def test_local_storage_queries_match_reference(q, dbs, corpus):
     db, jdb = dbs
     series, t = corpus
     start, end, step = int(t[30]), int(t[-1]), 30 * S
-    got = Engine(LocalStorage(db, NS), device="cpu").execute_range(
+    got = Engine(LocalStorage(db, NS), device="cpu").execute_range_ref(
         q, start, end, step)
     ref = JEngine(JLocalStorage(jdb, NS), mesh=None).execute_range_ref(
         q, start, end, step)

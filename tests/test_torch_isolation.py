@@ -45,6 +45,16 @@ for q in ("rate(bench_metric[5m])", "sum_over_time(bench_metric[5m])",
         q, int(t[30]), int(t[-1]), 30 * 10**9)
     ok = ok and blk.values.shape == (16, 110) and np.isfinite(blk.values).any()
 
+# Past the plan floor (64 series x 119 cells): the compiled route.
+plan_series, _ = promql_corpus(64, 17, hosts=8, metric=b"bench_requests")
+eng = Engine(DictStorage(plan_series), device="cpu")
+for q in ("sum by (host) (rate(bench_requests[5m]))",
+          "avg_over_time(bench_requests[5m])",
+          "topk(3, irate(bench_requests[1m]))"):
+    blk = eng.execute_range(q, int(t[30]), int(t[-1]), 30 * 10**9)
+    ok = ok and eng.last_route()["route"] == "compiled"
+    ok = ok and np.isfinite(blk.values).any()
+
 from m3_tpu_torch.metrics import carbon
 from m3_tpu_torch.query.graphite import GraphiteEngine
 from m3_tpu_torch.query.placement import QueryPlacement
@@ -113,7 +123,8 @@ print(json.dumps({"ok": bool(ok), "mods": mods}))
 
 def test_port_slice_imports_neither_jax_nor_m3_tpu():
     """The ingest slice, a few Engine queries (the six functions of the
-    query path's last slice among them), Graphite renders and a placement
+    query path's last slice among them, and queries on the compiled plan
+    route), Graphite renders and a placement
     decision, the storage path (write, tick, read and a LocalStorage
     query), a block merge and a guarded decode under an injected fault in
     a fresh process; the Engine and the Database also refuse to start

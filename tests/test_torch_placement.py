@@ -8,7 +8,9 @@ an engine on `cuda` (an engine on the CPU has nothing to place, like the
 reference under JAX_PLATFORMS=cpu), and a probe's device error raises
 typed instead of being swallowed. The reference's other two modes are
 the port's defaults: an Engine without a placement stays on its device
-("device"), and Engine(device="cpu") runs on the host ("host")."""
+("device"), and Engine(device="cpu") runs on the host ("host"). The
+compiled route ignores placement, as the reference's does, so the Engine
+cases here run the interpreter (execute_range_ref)."""
 
 import numpy as np
 import pytest
@@ -168,7 +170,7 @@ def test_cpu_engine_never_places():
                  placement=tp.QueryPlacement(HOST))
     before = ROOT.counter("query.placement.host").value()
     for q in ("rate(bench_metric[5m])", "deriv(bench_metric[5m])"):
-        eng.execute_range(q, int(t[30]), int(t[-1]), 30 * 10**9).values
+        eng.execute_range_ref(q, int(t[30]), int(t[-1]), 30 * 10**9).values
     assert ROOT.counter("query.placement.host").value() == before
     snap = eng.placement_snapshot()
     assert snap["placed_host"] == 0 and snap["placed_device"] == 2
@@ -232,8 +234,9 @@ def test_placed_evaluation_runs_on_the_host(fake_card_engine):
     for q in ("rate(bench_metric[5m])", "quantile_over_time(0.9, "
               "bench_metric[5m])", "holt_winters(bench_metric[5m], 0.3, 0.6)",
               "sum_over_time(bench_metric[5m])"):
-        got = eng.execute_range(q, int(t[30]), int(t[-1]), 30 * 10**9)
-        want = cpu.execute_range(q, int(t[30]), int(t[-1]), 30 * 10**9)
+        got = eng.execute_range_ref(q, int(t[30]), int(t[-1]), 30 * 10**9)
+        want = cpu.execute_range_ref(q, int(t[30]), int(t[-1]),
+                                     30 * 10**9)
         np.testing.assert_array_equal(got.values, want.values)
     assert rec.devices and all(d == HOST for _, d in rec.devices)
     assert ROOT.counter("query.placement.host").value() == before + 4

@@ -1,12 +1,14 @@
-"""The port's query engine against the reference's interpreter, on the CPU:
-m3_tpu_torch.query.executor.Engine(storage, device="cpu").execute_range
+"""The port's query interpreter against the reference's, on the CPU:
+m3_tpu_torch.query.executor.Engine(storage, device="cpu").execute_range_ref
 against m3_tpu.query.Engine(storage, mesh=None).execute_range_ref on the
-same storage.
+same storage (queries at 200 series x 110 steps and more take the
+compiled route by default in both; tests/test_torch_plan_compile.py holds
+that route).
 
 mesh=None keeps the reference on one device (the test conftest forces
 eight CPU devices, which would take its sharded route), and
-execute_range_ref is its per-node interpreter, the route the port has
-(its compiled route differs by about 1e-7 relative).
+execute_range_ref is each package's per-node interpreter (the compiled
+routes differ from it by about 1e-7 relative).
 
 Each query must give the same series tags in the same order, NaN at the
 same cells, and values within rtol 1e-5, atol 1e-8 (the oracle tolerance
@@ -79,7 +81,7 @@ def bench():
                          + list(MORE_QUERIES))
 def test_bench_corpus_matches_reference(bench, q):
     eng, ref, start, end, step = bench
-    _same(eng.execute_range(q, start, end, step),
+    _same(eng.execute_range_ref(q, start, end, step),
           ref.execute_range_ref(q, start, end, step), q)
 
 
@@ -95,7 +97,7 @@ def test_large_fan_in_takes_the_f32_device_forms():
               "min by (host) (irate(bench_requests[5m]))",
               "sum_over_time(bench_requests[5m])",
               "stddev_over_time(bench_requests[5m])"):
-        _same(eng.execute_range(q, int(t[30]), int(t[-1]), 30 * S),
+        _same(eng.execute_range_ref(q, int(t[30]), int(t[-1]), 30 * S),
               ref.execute_range_ref(q, int(t[30]), int(t[-1]), 30 * S), q)
 
 
@@ -167,7 +169,7 @@ def mem():
 ])
 def test_memstorage_matches_reference(mem, q):
     eng, ref = mem
-    _same(eng.execute_range(q, 5 * MIN, 9 * MIN, 30 * S),
+    _same(eng.execute_range_ref(q, 5 * MIN, 9 * MIN, 30 * S),
           ref.execute_range_ref(q, 5 * MIN, 9 * MIN, 30 * S), q)
 
 

@@ -1,9 +1,10 @@
-"""The six range functions through the port's Engine against the
-reference's interpreter, on the CPU: m3_tpu_torch.query.executor.Engine(
-storage, device="cpu").execute_range against m3_tpu.query.Engine(storage,
-mesh=None).execute_range_ref (the per-node interpreter: the route the port
-has; mesh=None keeps the reference on one device), and the instant form
-(one step) of both.
+"""The six range functions through the port's interpreter against the
+reference's, on the CPU: m3_tpu_torch.query.executor.Engine(storage,
+device="cpu").execute_range_ref against m3_tpu.query.Engine(storage,
+mesh=None).execute_range_ref (each package's per-node interpreter: 200
+series x 110 steps take the compiled route by default, which
+tests/test_torch_plan_compile.py holds; mesh=None keeps the reference on
+one device), and the instant form (one step) of both.
 
 Two corpora: bench_promql-shaped counters (promql_corpus, 200 series) and
 mixed-sign gauges (gauge_corpus: normal x 10, 20% NaN, 200 series).
@@ -95,7 +96,7 @@ CASES = ([(q.format(x="bench_metric"), "counter") for q in SIX + MORE]
 def test_range_query_matches_reference(engines, q, corpus):
     eng, ref, t = engines
     start, end = int(t[30]), int(t[-1])
-    _same(eng.execute_range(q, start, end, STEP),
+    _same(eng.execute_range_ref(q, start, end, STEP),
           ref.execute_range_ref(q, start, end, STEP), q)
 
 
@@ -104,7 +105,8 @@ def test_range_query_matches_reference(engines, q, corpus):
 def test_instant_query_matches_reference(engines, q):
     eng, ref, t = engines
     at = int(t[200])
-    _same(eng.execute_instant(q, at), ref.execute_range_ref(q, at, at, S), q)
+    _same(eng.execute_range_ref(q, at, at, S),
+          ref.execute_range_ref(q, at, at, S), q)
 
 
 def test_the_six_functions_no_longer_raise(engines):
