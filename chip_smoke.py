@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ingest, read and query paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ingest, read, query and aggregation paths
+on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -152,10 +152,39 @@ Phases (each synchronises the device and fails the run on any error):
               split of one replayed query; 200 series within rtol 1e-5,
               atol 1e-8 of execute_range_ref (the bench's own assertion)
               and of the CPU plan route
+  11. aggregator  the aggregator tier and the standing rules engine on the
+              card, each number printed beside the card's name and power
+              limit. (a) bench_counter_gauge (BASELINE config #2): 50,000
+              metrics (half counters, half gauges, seed 23) at 1m:40h and
+              5m:40h, 5 minutes of 10 s values, MetricList.flush with a
+              columnar handler: windows/s and datapoints/s, median of 3
+              rounds. (b) bench_agg_rollup_10x: _agg10x_build's 500,000
+              metrics (40/40/20, 10% piped gauges into 500 rollup ids, seed
+              31), two 1m windows of 6 values and the second-stage flush:
+              the round (median of 3), a cProfile split, the quantile
+              tile's shape and bytes, the rank selection's device time
+              and its H2D and D2H; the 20,000-metric mirror's emissions on
+              the card equal the CPU's and reduce_and_emit_ref's bit for
+              bit (bench.py:732-783); the rank selection equals its plain
+              version at widths 128, 256 and 1024 on hostile rows; a fault
+              injected on the agg_flush route raises typed, counted once.
+              (c) Aggregator: 64 shards, one million samples through
+              add_untimed_batch, one flush with an election: every window
+              emitted, the flush times of all shards in one kv
+              transaction, counter sums and timer quantiles equal to numpy.
+              (d) RulesEngine over phase 10's corpus, 4 rounds at step 30 s
+              on the default compiled route: two recording rules (a grouped
+              rate sum; max_over_time, the window kernel inside its plan
+              graph), 16 `>` alert rules on avg_over_time (the compare on
+              the card) and a for_steps=3 rule; the recorded rows written
+              into a Database(ShardSet(16)) (the hash kernel) and read back
+              through LocalStorage; rows and transitions equal the same
+              rounds on Engine(device="cpu") (the compiled route's bounds;
+              transitions as sets). The window and hash kernels must launch
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush, graphite, plan), each count set to 0 just before its path is
-driven and read just after. A compiled plan's kernels are recorded once
+flush, graphite, plan, aggregator), each count set to 0 just before its
+path is driven and read just after. A compiled plan's kernels are recorded once
 in its CUDA graph and launched by each replay: the window kernel's count
 adds its warm-up launch and, per replay, the launches its graph holds.
 The line before the last is the kernels JSON; the last line is
@@ -266,6 +295,32 @@ PLAN_STEPS = {
     "host finish (D2H wait, f64 finish)": ("parallel/compile.py", "fetch"),
 }
 EPS = 1.2e-7  # 2^-23
+# Phase 11: bench_counter_gauge's and bench_agg_rollup_10x's sizes, the
+# reference bench's 20,000-metric oracle mirror, the end-to-end
+# Aggregator's ids and samples, timed rounds, and the rules' recordings.
+AGG_CG_SERIES, AGG_10X_SERIES, AGG_MIRROR_SERIES = 50_000, 500_000, 20_000
+AGG_E2E_IDS, AGG_E2E_SAMPLES, AGG_ROUNDS = 50_000, 1_000_000, 3
+RULE_RECORDS = ("sum by (host) (rate(bench_requests[5m]))",
+                "max_over_time(bench_requests[5m])")
+# The steps of one agg10x round that phase 11 times (cProfile).
+AGG_STEPS = {
+    "collect (collect_into)": ("aggregator/list.py", "collect_into"),
+    "host moments (_columnar_moments)": ("aggregator/list.py",
+                                         "_columnar_moments"),
+    "quantile tile build": ("parallel/agg_flush.py", "build_quantile_tile"),
+    "quantile ordering (H2D, argsort, D2H) through the guard": (
+        "parallel/guard.py", "dispatch"),
+    "exact quantile values (tile, ordering, gather)": (
+        "parallel/agg_flush.py", "exact_quantile_values"),
+    "pipelines (rollup forwards)": ("aggregator/elem.py",
+                                    "_process_pipeline"),
+    "forward delivery (second-stage elems)": ("testing/__init__.py",
+                                              "forward_fn"),
+    "columnar handler": ("chip_smoke.py", "handle_columnar"),
+    "emit_batch (all of the reduce and emit)": ("aggregator/list.py",
+                                                "emit_batch"),
+}
+CARD_LINE = ""
 
 
 class SmokeError(RuntimeError):
@@ -388,6 +443,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card_line = smi.stdout.strip().splitlines()[0]
+    global CARD_LINE
+    CARD_LINE = card_line
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     print(card_line, flush=True)
@@ -589,6 +646,10 @@ def main() -> int:
     # -- 10. the compiled plan: bench_promql_plan_agg's query ---------------
     for name, n in _plan_phase(plan_corpus, t_q).items():
         by_path[name]["plan"] = n
+
+    # -- 11. the aggregator tier and the standing rules engine ---------------
+    for name, n in _aggregator_phase(plan_corpus, t_q).items():
+        by_path[name]["aggregator"] = n
     del plan_corpus
 
     kernels = []
@@ -2506,6 +2567,534 @@ def _plan_phase(plan_corpus, t) -> dict:
           f"the CPU plan route; replay median {med!r} ms against the "
           f"interpreter's {imed!r} ms")
     return launches
+
+
+class _ColumnarSink:
+    """A flush handler of the production shape (Handler.handle_columnar,
+    bench.py _ColumnarCapture): a round's emissions arrive as columnar
+    groups in ONE call; it keeps the values."""
+
+    def __init__(self):
+        self.values = []
+
+    def __call__(self, mid, t, v, pol):
+        self.values.append(v)
+
+    def handle_columnar(self, groups):
+        for _ids, _ts, vs, _pol in groups:
+            self.values.extend(vs.tolist())
+
+
+def _card(text: str) -> None:
+    """Print one phase 11 number beside the card's name and power limit."""
+    print(f"[{CARD_LINE}] {text}", flush=True)
+
+
+def _aggregator_phase(plan_corpus, t) -> dict:
+    """Phase 11: the aggregator tier and the standing rules engine on the
+    card. (a) bench_counter_gauge's population (BASELINE config #2); (b)
+    the agg_rollup_10x population, its 20,000-metric mirror against the
+    CPU and reduce_and_emit_ref, the rank selection against its plain
+    version at widths 128, 256 and 1024, a fault on the `agg_flush` route;
+    (c) Aggregator end to end; (d) a RulesEngine over phase 10's corpus
+    with its write-back into a Database. Returns the kernels' launches
+    over the phase (the counts set to 0 just before it)."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _agg_counter_gauge()
+    _agg_rollup_10x()
+    _agg_end_to_end()
+    _rules_phase(plan_corpus, t)
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    phase(f"aggregator: phase 11 in {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches}")
+    check(launches["window"] > 0 and launches["hash"] > 0,
+          f"phase 11 did not launch the window and hash kernels: {launches}")
+    return launches
+
+
+def _median_rounds(stage, flush, rounds: int):
+    """`rounds` timed flushes (stage() before each, untimed): the host
+    clock of each, synchronised, in ms, with the full GC pauses inside."""
+    import torch
+
+    runs, gcs = [], []
+    for _ in range(rounds):
+        stage()
+        torch.cuda.synchronize()
+        with _gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            flush()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        gcs.append(pauses)
+    return runs, gcs
+
+
+def _agg_counter_gauge() -> None:
+    """(a) bench_counter_gauge (bench.py:507, BASELINE config #2): 50,000
+    metrics (half counters, half gauges, seed 23) at 1m:40h and 5m:40h,
+    5 minutes of 10 s values, flushed through MetricList.flush on the
+    card with a columnar handler; a warm-up flush through the
+    per-datapoint sink checks the windows and a counter's sum."""
+    from m3_tpu_torch.testing import counter_gauge_population
+
+    n = AGG_CG_SERIES
+    t0 = time.perf_counter()
+    lists, stage, target = counter_gauge_population(n)
+    build_s = time.perf_counter() - t0
+    emitted = []
+    stage()
+    w = [lists[60].flush(target, lambda m, t, v, p: emitted.append((m, t, v))),
+         lists[300].flush(target, lambda m, t, v, p: emitted.append((m, t, v)))]
+    check(w == [n * 5, n] and len(emitted) == n * 6,
+          f"config #2 flushed {w} windows, {len(emitted)} rows")
+    rng = np.random.default_rng(23)
+    c0 = rng.poisson(5.0, (n // 2, 30)).astype(np.float64)[0]
+    first = {(m, t): v for m, t, v in emitted}
+    check(first[(b"bench.cg.0", 1_700_000_000 * 10**9 - (1_700_000_000 * 10**9)
+                 % (60 * 10**9) + 60 * 10**9)] == float(c0[:6].sum()),
+          "config #2: a counter window's sum differs")
+    sink = _ColumnarSink()
+
+    def flush():
+        sink.values.clear()
+        check(lists[60].flush(target, sink) + lists[300].flush(target, sink)
+              == n * 6 and len(sink.values) == n * 6, "config #2 round")
+
+    runs, gcs = _median_rounds(stage, flush, AGG_ROUNDS)
+    med = float(np.median(runs))
+    _card(f"aggregator (a) config #2 counter_gauge_rollup: {n} metrics x 2 "
+          f"policies, build {build_s:.3f}s; {n * 6} windows a round, median "
+          f"of {AGG_ROUNDS} {med!r} ms ({n * 30 * 2 / (med / 1e3)!r} "
+          f"datapoints/s, {n * 6 / (med / 1e3)!r} windows/s); runs {runs}; "
+          f"full GC pauses {gcs}")
+
+
+def _agg_rollup_10x() -> None:
+    """(b) bench_agg_rollup_10x (bench.py:652): _agg10x_build's 500,000
+    metrics (40/40/20, 10% piped gauges into 500 rollup ids, seed 31), two
+    1m windows of 6 values, the second-stage flush; the round's quantile
+    tile, its rank selection's device time and its H2D/select/D2H split;
+    a cProfile split of one round; then the 20,000-metric mirror (card
+    against the CPU and against reduce_and_emit_ref, bit for bit), the
+    rank selection against its plain version, and a fault."""
+    import torch
+
+    from m3_tpu_torch.aggregator import list as list_mod
+    from m3_tpu_torch.aggregator.flush import plan_jobs
+    from m3_tpu_torch.ops import aggregation as agg
+    from m3_tpu_torch.parallel import agg_flush
+    from m3_tpu_torch.testing import (AGG_BASE_NS, agg10x_build, agg10x_planes,
+                                      agg10x_stage, loopback_forward)
+
+    n = AGG_10X_SERIES
+    t1, t2 = AGG_BASE_NS + 120 * 10**9, AGG_BASE_NS + 180 * 10**9
+    t0 = time.perf_counter()
+    lists, elems, n_piped, n_ids = agg10x_build(n)
+    build_s = time.perf_counter() - t0
+    planes = agg10x_planes(n)
+    lst = lists.for_resolution(60 * 10**9)
+    fwd = loopback_forward(lst)
+    tiles = []
+    rank_rows = agg_flush.quantile_rank_rows
+
+    def recording(tile, counts, qs, device=None):
+        tiles.append((tile.shape, tile.nbytes, qs))
+        return rank_rows(tile, counts, qs, device)
+
+    agg_flush.quantile_rank_rows = recording
+    try:
+        t0 = time.perf_counter()
+        agg10x_stage(elems, planes)
+        stage_s = time.perf_counter() - t0
+        emitted = []
+        cap = lambda m, t, v, p: emitted.append(v)  # noqa: E731
+        w_a, w_b = lst.flush(t1, cap, fwd), lst.flush(t2, cap, fwd)
+        check((w_a, w_b) == (n * 2, 2 * n_ids),
+              f"agg10x flushed {w_a} + {w_b} windows")
+        check(all(math.isfinite(v) for v in emitted), "agg10x: a value is "
+              "not finite")
+        sink = _ColumnarSink()
+
+        def flush():
+            sink.values.clear()
+            check((lst.flush(t1, sink, fwd), lst.flush(t2, sink, fwd))
+                  == (n * 2, 2 * n_ids), "agg10x round")
+
+        runs, gcs = _median_rounds(lambda: agg10x_stage(elems, planes),
+                                   flush, AGG_ROUNDS)
+        agg10x_stage(elems, planes)
+        with _instrumented(AGG_STEPS) as one:
+            flush()
+    finally:
+        agg_flush.quantile_rank_rows = rank_rows
+    med = float(np.median(runs))
+    shape, nbytes, qs = tiles[-1]
+    _card(f"aggregator (b) agg_rollup_10x: {n} metrics ({n_piped} piped "
+          f"gauges into {n_ids} rollup ids), build {build_s:.3f}s, staging "
+          f"{stage_s:.3f}s; round (both windows + second stage) median of "
+          f"{AGG_ROUNDS} {med!r} ms ({n * 12 / (med / 1e3)!r} datapoints/s);"
+          f" runs {runs}; full GC pauses {gcs}")
+    _card(f"aggregator (b) quantile tile {shape} f32 = {nbytes} bytes, qs "
+          f"{qs}, {len(tiles)} tiles over the warm-up and rounds")
+    _card(f"aggregator (b) one round traced: {one['wall'] * 1e3:.3f} ms; "
+          f"{_split_text(one)}")
+    # The round's tile again, its parts timed alone.
+    tile, counts = _timer_tile(elems, planes, shape)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    tile_d = torch.from_numpy(tile).to("cuda")
+    cnt_d = torch.from_numpy(counts).to("cuda")
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - h0) * 1e3
+    sel_ms = cuda_ms(lambda: agg.quantile_rank_select(tile_d, cnt_d, qs), 5)
+    idx = agg.quantile_rank_select(tile_d, cnt_d, qs)
+    torch.cuda.synchronize()
+    d0 = time.perf_counter()
+    idx_h = idx.cpu().numpy()
+    d2h_ms = (time.perf_counter() - d0) * 1e3
+    p0 = time.perf_counter()
+    plain = agg.quantile_rank_select(torch.from_numpy(tile),
+                                     torch.from_numpy(counts), qs)
+    plain_ms = (time.perf_counter() - p0) * 1e3
+    check(np.array_equal(idx_h, plain.numpy()), "the card's rank selection "
+          "differs from its plain version on the round's tile")
+    # bytes: the tile read once, the counts, the indices written; the
+    # sort's passes are not counted (the least any ordering must move).
+    bound_ms = (tile.nbytes + counts.nbytes + idx_h.nbytes) / HBM_BYTES_PER_S * 1e3
+    _card(f"aggregator (b) rank selection at {shape}: device {sel_ms!r} ms "
+          f"(CUDA events, 5 calls), H2D of tile + counts {h2d_ms!r} ms, D2H "
+          f"of the indices {d2h_ms!r} ms, plain on the host CPU {plain_ms!r} "
+          f"ms, byte bound {bound_ms!r} ms; indices equal the plain version")
+    del tile_d, cnt_d, idx, lists, elems, lst
+    torch.cuda.empty_cache()
+    _agg_mirror(planes, list_mod, plan_jobs)
+    _rank_select_widths()
+    _agg_flush_fault()
+
+
+def _timer_tile(elems, planes, shape):
+    """The tile of one agg10x round (both windows of every timer, in flush
+    order: window-major within each timer) built as the flush builds it."""
+    from m3_tpu_torch.parallel import agg_flush
+
+    rows = [planes["timer"][i] for _e, kind, i in elems if kind == "timer"]
+    buckets = [r[k * 6:(k + 1) * 6] for r in rows for k in (0, 1)]
+    counts = np.full(len(buckets), 6, np.int64)
+    tile = agg_flush.build_quantile_tile(buckets, counts)[0]
+    check(tile.shape == shape, f"the rebuilt tile {tile.shape} is not the "
+          f"round's {shape}")
+    return tile, counts.astype(np.int32)
+
+
+def _agg_mirror(planes, list_mod, plan_jobs) -> None:
+    """The reference bench's oracle protocol (bench.py:732-783) at its
+    20,000-metric mirror (the first rows of the 500,000-metric values):
+    the card's flush, the CPU's flush and reduce_and_emit_ref on the card
+    emit the same rows bit for bit."""
+    from m3_tpu_torch.testing import (AGG_BASE_NS, agg10x_build, agg10x_stage,
+                                      loopback_forward)
+
+    n = AGG_MIRROR_SERIES
+    out = {}
+    for who, dev in (("card", None), ("cpu", "cpu"), ("oracle", None)):
+        lists, elems, _, _ = agg10x_build(n, dev)
+        lst = lists.for_resolution(60 * 10**9)
+        agg10x_stage(elems, planes)
+        rows = []
+        cap = lambda m, t, v, p, _r=rows: _r.append((m, t, v))  # noqa: E731
+        fwd = loopback_forward(lst)
+        t0 = time.perf_counter()
+        for tt in (120, 180):
+            target = AGG_BASE_NS + tt * 10**9
+            if who == "oracle":
+                list_mod.reduce_and_emit_ref(
+                    plan_jobs(lists, target, 0, cap, fwd)[0], device=dev)
+            else:
+                lst.flush(target, cap, fwd)
+        out[who] = (sorted(rows), (time.perf_counter() - t0) * 1e3)
+    rows = out["card"][0]
+    check(rows == out["cpu"][0], "agg10x mirror: the card's emissions differ "
+          "from the CPU's")
+    check(rows == out["oracle"][0], "agg10x mirror: the card's emissions "
+          "differ from reduce_and_emit_ref")
+    _card(f"aggregator (b) mirror of {n} metrics: {len(rows)} rows, card == "
+          f"CPU == reduce_and_emit_ref bit for bit (flush ms: card "
+          f"{out['card'][1]!r}, CPU {out['cpu'][1]!r}, oracle "
+          f"{out['oracle'][1]!r})")
+
+
+def _rank_select_widths() -> None:
+    """The rank selection on the card against its plain version on the
+    CPU at widths 128, 256 and 1024 (rows with NaN of both signs, -0.0 and
+    +0.0, ties, infinities, empty and full rows)."""
+    import torch
+
+    from m3_tpu_torch.ops import aggregation as agg
+    from m3_tpu_torch.testing import hostile_rank_rows
+
+    qs = (0.0, 0.5, 0.9, 0.95, 0.99, 0.999, 1.0)
+    for w, b in ((128, 20_000), (256, 20_000), (1024, 20_000)):
+        v, c = hostile_rank_rows(w, b, w)
+        got = agg.quantile_rank_select(torch.from_numpy(v).to("cuda"),
+                                       torch.from_numpy(c).to("cuda"), qs)
+        want = agg.quantile_rank_select(torch.from_numpy(v),
+                                        torch.from_numpy(c), qs)
+        check(torch.equal(got.cpu(), want), f"rank selection at width {w}: "
+              "the card differs from the plain version")
+    phase("aggregator (b): the rank selection equals its plain version at "
+          "widths 128, 256 and 1024 on hostile rows")
+
+
+def _agg_flush_fault() -> None:
+    """A fault injected on the `agg_flush` route on the card raises a
+    typed KernelFault and is counted once."""
+    from m3_tpu_torch.parallel import agg_flush, guard
+    from m3_tpu_torch.testing import faultcomp
+    from m3_tpu_torch.utils.instrument import ROOT
+
+    buckets = [np.arange(k, dtype=np.float64) for k in (3, 0, 200)]
+    counts = np.array([3, 0, 200])
+    key = "telemetry.compute.faults{kind=kernel,route=agg_flush}"
+    guard.reset()
+    before = ROOT.snapshot().get(key, 0)
+    try:
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=1, dispatch_raise=1.0, route_filter="agg_flush")):
+            agg_flush.exact_quantile_values(buckets, counts, (0.5,))
+        raised = None
+    except guard.KernelFault as err:
+        raised = err
+    finally:
+        guard.reset()
+    counted = ROOT.snapshot().get(key, 0) - before
+    check(raised is not None and raised.route == "agg_flush" and counted == 1,
+          f"agg_flush fault: raised {raised!r}, counted {counted}")
+    vals = agg_flush.exact_quantile_values(buckets, counts, (0.5,))
+    check(vals[:, 0].tolist() == [1.0, 0.0, 99.0], "agg_flush after reset")
+    phase("aggregator (b): an injected fault on agg_flush raised "
+          f"{type(raised).__name__} on the card, counted once")
+
+
+def _agg_end_to_end() -> None:
+    """(c) Aggregator end to end: 64 shards, AGG_E2E_IDS metric ids (40%
+    counters, 40% gauges, 20% timers of 5 values), one sample per id
+    every 6 s for 2 minutes (one million samples) through
+    add_untimed_batch, then one flush with an election and a
+    FlushTimesManager: every window emitted, the flush times committed
+    once, counter sums and timer quantiles equal to an independent numpy
+    computation."""
+    import torch
+
+    from m3_tpu_torch.aggregator import Aggregator, CaptureHandler
+    from m3_tpu_torch.aggregator.election import ElectionManager
+    from m3_tpu_torch.aggregator.flush import FlushTimesManager
+    from m3_tpu_torch.cluster.kv import MemStore
+    from m3_tpu_torch.cluster.services import LeaderService
+    from m3_tpu_torch.metrics.metric import MetricUnion
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.testing import AGG_BASE_NS
+
+    n, k = AGG_E2E_IDS, AGG_E2E_SAMPLES // AGG_E2E_IDS
+    rng = np.random.default_rng(37)
+    cvals = rng.poisson(5.0, (k, n))
+    gvals = rng.standard_normal((k, n))
+    tvals = rng.lognormal(0.0, 1.0, (k, n, 5))
+    ids = [b"agg.e2e.%d" % i for i in range(n)]
+    kinds = np.arange(n) % 5  # 0-1 counter, 2-3 gauge, 4 timer
+    store = MemStore()
+    commits = []
+    set_many = store.set_many
+    store.set_many = lambda items: (commits.append(len(items)),
+                                    set_many(items))[1]
+    clock = {"t": AGG_BASE_NS}
+    handler = CaptureHandler()
+    agg = Aggregator(num_shards=64, clock=lambda: clock["t"],
+                     flush_handler=handler,
+                     election=ElectionManager(LeaderService(
+                         store, "agg", "i-0", lease_ttl_ns=3600 * 10**9,
+                         clock=lambda: clock["t"])),
+                     flush_times=FlushTimesManager(store, "ss-0"),
+                     default_policies=(StoragePolicy.parse("1m:40h"),))
+    ingest_s = 0.0
+    for j in range(k):
+        clock["t"] = AGG_BASE_NS + j * 6 * 10**9
+        mus = [MetricUnion.counter(m, int(cvals[j, i])) if kinds[i] < 2 else
+               MetricUnion.gauge(m, float(gvals[j, i])) if kinds[i] < 4 else
+               MetricUnion.batch_timer(m, tvals[j, i].tolist())
+               for i, m in enumerate(ids)]
+        t0 = time.perf_counter()
+        ok = agg.add_untimed_batch(mus)
+        ingest_s += time.perf_counter() - t0
+        check(all(ok), "add_untimed_batch refused a sample")
+    clock["t"] = AGG_BASE_NS + 3 * 60 * 10**9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    windows = agg.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    n_t = int((kinds == 4).sum())
+    check(windows == 2 * n, f"Aggregator.flush: {windows} windows")
+    check(len(handler.metrics) == 2 * (n - n_t) + 2 * n_t * 11,
+          f"Aggregator.flush: {len(handler.metrics)} rows")
+    check(commits == [64], f"flush times committed as {commits}")
+    got = {(m.id, m.time_nanos): m.value for m in handler.metrics}
+    half = k // 2  # samples per 1m window
+    for w in (0, 1):
+        end = AGG_BASE_NS + (w + 1) * 60 * 10**9
+        sl = slice(w * half, (w + 1) * half)
+        csum = cvals[sl].sum(axis=0)
+        tw = np.sort(tvals[sl].transpose(1, 0, 2).reshape(n, -1), axis=1)
+        cnt = tw.shape[1]
+        for i in range(0, n, 97):
+            if kinds[i] < 2:
+                check(got[(ids[i], end)] == float(csum[i]),
+                      f"counter {ids[i]} window {w}")
+            elif kinds[i] == 4:
+                name = ids[i]
+                for q, suffix in ((0.5, b".p50"), (0.99, b".p99")):
+                    r = int(np.ceil(np.float32(q) * np.float32(cnt))) - 1
+                    check(got[(name + suffix, end)] == tw[i, r],
+                          f"timer {name} {suffix} window {w}")
+    _card(f"aggregator (c) Aggregator: 64 shards, {n} ids, {n * k} samples "
+          f"through add_untimed_batch in {ingest_s:.3f}s "
+          f"({n * k / ingest_s!r} samples/s); flush with election of "
+          f"{windows} windows, {len(handler.metrics)} rows in "
+          f"{flush_s * 1e3!r} ms; flush times of 64 shards in "
+          f"{len(commits)} kv transaction")
+
+
+def _rules_phase(plan_corpus, t) -> None:
+    """(d) RulesEngine over phase 10's corpus (10,000 counters over 200
+    hosts, seed 17) on the default compiled route: 4 rounds at step 30 s
+    on an advancing clock (1, 2, 3 and 4 new steps): two recording rules
+    (a grouped rate sum; max_over_time, the window kernel inside its plan
+    graph), a class of 16 `>` alert rules on avg_over_time at thresholds
+    near quantiles of the data (the compare on the card: 160,000 cells a
+    step) and a for_steps=3 rule. The recorded rows go through
+    write_output into a Database(ShardSet(16)) (the hash kernel) and are
+    read back through LocalStorage; rows and transitions equal the same
+    rounds on Engine(device="cpu") (rows within the compiled route's
+    bounds, transitions as sets)."""
+    import torch
+
+    from m3_tpu_torch.coordinator.rules_engine import (AlertRule,
+                                                       RecordingRule,
+                                                       RulesEngine)
+    from m3_tpu_torch.parallel import compile as pcompile
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.model import Tags
+    from m3_tpu_torch.query.storage import LocalStorage
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.testing import DictStorage, gap_thresholds
+
+    storage = DictStorage(plan_corpus)
+    avg = "avg_over_time(bench_requests[5m])"
+    base = int(t[200])
+    clocks = [base + j * STEP_NS for j in (0, 2, 5, 9)]
+    ref = Engine(storage, device="cpu").execute_range_ref(
+        avg, base, clocks[-1], STEP_NS)
+    ths = gap_thresholds(np.asarray(ref.values), 16)
+    recs = [RecordingRule(b"rules:%d" % i, q, labels=((b"rule", b"r%d" % i),))
+            for i, q in enumerate(RULE_RECORDS)]
+    alerts = [AlertRule(b"hot:%02d" % i, avg, ">", th)
+              for i, th in enumerate(ths)]
+    alerts.append(AlertRule(b"sticky", avg, ">", ths[8], for_steps=3))
+    now = {"t": base}
+    db = Database(ShardSet(num_shards=16), clock=lambda: now["t"])
+    db.ensure_namespace(b"default")
+
+    def write_output(rows):
+        ids = [Tags.of(tags).id() for tags, _t, _v in rows]
+        db.write_batch(b"default", ids,
+                       np.array([r[1] for r in rows], np.int64),
+                       np.array([r[2] for r in rows], np.float64),
+                       tags=[r[0] for r in rows])
+
+    out = {}
+    for who, eng in (("card", Engine(storage)),
+                     ("cpu", Engine(storage, device="cpu"))):
+        written = []
+
+        def sink(rows, _w=written):
+            _w.extend(rows)
+            if who == "card":
+                write_output(rows)
+
+        re = RulesEngine(eng, sink, step_ns=STEP_NS)
+        for r in recs:
+            re.add_recording(r)
+        for a in alerts:
+            re.add_alert(a)
+        rounds = []
+        for c in clocks:
+            now["t"] = c
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = re.evaluate(c)
+            torch.cuda.synchronize()
+            rounds.append(((time.perf_counter() - t0) * 1e3, res))
+        out[who] = (rounds, written, re)
+    card_rounds, card_rows, card_re = out["card"]
+    cpu_rounds, cpu_rows, _ = out["cpu"]
+    for (_, a), (_, b) in zip(card_rounds, cpu_rounds):
+        check((a.steps, a.exprs_evaluated, a.recorded_rows) ==
+              (b.steps, b.exprs_evaluated, b.recorded_rows),
+              f"rules round differs: {a} against {b}")
+        check({(x.rule, x.series, x.kind, x.time_nanos) for x in
+               a.transitions} == {(x.rule, x.series, x.kind, x.time_nanos)
+                                  for x in b.transitions},
+              "rules: the card's transitions differ from the CPU's")
+    key = lambda r: (tuple(sorted(r[0].items())), r[1])  # noqa: E731
+    gk = {key(r): r[2] for r in card_rows}
+    ck_ = {key(r): r[2] for r in cpu_rows}
+    check(gk.keys() == ck_.keys(), "rules: recorded rows differ in keys")
+    worst = 0.0
+    for i, q in enumerate(RULE_RECORDS):
+        keys = [k for k in ck_ if dict(k[0])[b"__name__"] == b"rules:%d" % i]
+        a = np.array([gk[k] for k in keys])
+        b = np.array([ck_[k] for k in keys])
+        tol = _plan_tol(q, b)
+        check(bool(np.allclose(a, b, equal_nan=True, **tol)),
+              f"rules: recorded {q} beyond {tol}")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+            np.abs(b), 1e-30))))
+    n_trans = sum(len(r.transitions) for _, r in card_rounds)
+    check(n_trans > 0, "rules: no transition in 4 rounds")
+    # read the recorded series back from the store
+    want = {(dict(k[0])[b"host"], k[1]): v for k, v in gk.items()
+            if dict(k[0])[b"__name__"] == b"rules:0"}
+    times = [tt for _h, tt in want]
+    local = Engine(LocalStorage(db, b"default"))
+    blk = local.execute_range('rules:0{rule="r0"}', min(times), max(times),
+                              STEP_NS)
+    got = {(x.get(b"host"), int(tt)): float(v)
+           for x, row in zip(blk.series_tags, np.asarray(blk.values))
+           for tt, v in zip(blk.meta.times(), row) if np.isfinite(v)}
+    check(got.keys() == want.keys() and all(
+        abs(got[k] - want[k]) <= 1e-6 * abs(want[k]) for k in want),
+        "rules: the stored recorded series do not read back")
+    db.close()
+    pcompile.clear()
+    torch.cuda.empty_cache()
+    card_ms = [round(ms, 3) for ms, _ in card_rounds]
+    cpu_ms = [round(ms, 3) for ms, _ in cpu_rounds]
+    _card(f"rules (d): 4 rounds of {[r.steps for _, r in card_rounds]} steps "
+          f"over {len(plan_corpus)} series: card ms {card_ms}, CPU ms "
+          f"{cpu_ms}; {len(card_rows)} recorded rows (max rel diff to the "
+          f"CPU {worst!r}), {n_trans} transitions (equal sets), firing "
+          f"{len(card_re.firing())}; the recorded rate sum read back through "
+          f"LocalStorage ({len(got)} cells)")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

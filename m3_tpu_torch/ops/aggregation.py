@@ -195,6 +195,29 @@ def quantiles(values, mask, qs: tuple):
     return torch.stack(outs, dim=-1)
 
 
+def quantile_rank_select(values, counts, qs: tuple):
+    """Batched rank selection over padded value rows: [B, W] f32 values +
+    [B] int32 valid counts -> [B, len(qs)] int32 indices of each quantile
+    element WITHIN its row (the aggregator flush's ordering; the caller
+    gathers the exact f64 values by index on the host).
+
+    Padding past each row's count is +inf, so real elements order first;
+    rank ceil(q*n) with q*n in f32, q=0 -> rank 1 (cm/stream.go:160),
+    clipped to the row. The sort is stable over canonical keys: -0.0 is
+    sorted as +0.0 and every NaN as the one positive NaN, largest of all,
+    so ties keep input order on every backend, as jnp.argsort orders
+    them (XLA standardizes zeros and NaNs in its sort comparator)."""
+    width = values.shape[-1]
+    mask = (torch.arange(width, device=values.device)[None, :]
+            < counts[:, None])
+    keys = torch.where(mask, values, float("inf"))
+    keys = torch.where(torch.isnan(keys), float("nan"), keys + 0.0)
+    order = torch.argsort(keys, dim=-1, stable=True)
+    n = counts.to(torch.float32)
+    idx = torch.stack([_rank_index(q, n, width) for q in qs], dim=-1)
+    return torch.gather(order, -1, idx.to(torch.int64)).to(torch.int32)
+
+
 def _sorted_columns(cols):
     """Sort a short list of same-shaped arrays elementwise across the list
     with an odd-even transposition network of min/max compare-exchanges."""

@@ -7,7 +7,9 @@ kernel (`codec.encode`, ops/tsz.encode_batch), the decode kernel
 utils/hashing.hash_batch), the block plane decode (`block.decode`,
 storage/block._dispatch_decode) and the temporal device functions
 (`temporal.rate`, `temporal.last_two_idx`, `temporal.over_time`,
-`temporal.over_time_finish`, through `guarded_builder`).
+`temporal.over_time_finish`, through `guarded_builder`), the compiled
+plans (`plan`) and the aggregator flush's quantile ordering (`agg_flush`,
+parallel/agg_flush.quantile_rank_rows).
 
   classify     torch's exception zoo collapses to a closed ComputeError
                taxonomy: CompileError / DeviceOOM / KernelFault /

@@ -12,7 +12,15 @@ window kernel, window_reorder_bounds gives the per-window tolerance of its
 f32 sums, and promql_corpus builds the reference benchmark's PromQL
 storage (bench.py bench_promql / bench_promql_plan_agg), gauge_corpus
 mixed-sign gauges on the same grid. write_corpus writes such a corpus
-into a storage Database in time order."""
+into a storage Database in time order.
+
+For the aggregator tier: counter_gauge_population and agg10x_build build
+the populations of the reference benchmark's aggregator flushes
+(bench.py bench_counter_gauge, BASELINE config #2, and _agg10x_build),
+agg10x_planes their values and loopback_forward the local second stage
+their rollup forwards feed; hostile_rank_rows draws tiles for the flush's
+rank selection. gap_thresholds places alert thresholds where no answer
+within the compiled route's bound of the data could cross them."""
 
 from __future__ import annotations
 
@@ -192,3 +200,165 @@ def write_corpus(db, namespace: bytes, series: dict, t, now: dict,
                        tags=tags * len(steps))
         calls += 1
     return calls
+
+
+S_NS = 1_000_000_000
+# agg_rollup_10x's base time: 1,700,000,000 s aligned down to the minute.
+AGG_BASE_NS = 1_700_000_000 * S_NS - (1_700_000_000 * S_NS) % (60 * S_NS)
+
+
+def counter_gauge_population(n: int, device=None, seed: int = 23):
+    """bench_counter_gauge's population (bench.py:507): n metrics, the
+    first half counters (Poisson(5)), the rest gauges (normal), each with
+    the storage policies 1m:40h and 5m:40h, drawn from
+    np.random.default_rng(seed). Returns (lists {60: MetricList, 300:
+    MetricList} on `device`, stage, target): stage() adds 5 minutes of
+    10 s values from 1,700,000,000 s (five 1m windows of 6 and one 5m
+    window of 30 per metric, as the bench stages them), and a flush of
+    both lists at `target` closes n * 6 windows."""
+    from ..aggregator.elem import Elem, ElemKey
+    from ..aggregator.list import MetricList
+    from ..metrics.metric import MetricType
+    from ..metrics.policy import StoragePolicy
+
+    pols = {60: StoragePolicy.parse("1m:40h"), 300: StoragePolicy.parse("5m:40h")}
+    base = 1_700_000_000 * S_NS
+    rng = np.random.default_rng(seed)
+    cvals = rng.poisson(5.0, (n // 2, 30)).astype(np.float64)
+    gvals = rng.standard_normal((n - n // 2, 30))
+    lists = {res: MetricList(res * S_NS, device) for res in pols}
+    elems = []
+    for i in range(n):
+        mt = MetricType.COUNTER if i < n // 2 else MetricType.GAUGE
+        vals = cvals[i] if i < n // 2 else gvals[i - n // 2]
+        mid = b"bench.cg.%d" % i
+        for res, pol in pols.items():
+            key = ElemKey(mid, pol)
+            e = lists[res].get_or_create(key, lambda k=key, m=mt: Elem(k, m))
+            elems.append((e, res, vals))
+
+    def stage():
+        for e, res, vals in elems:
+            if res == 60:
+                for wi in range(5):
+                    e.add_values(base + wi * 60 * S_NS, vals[wi * 6:(wi + 1) * 6])
+            else:
+                e.add_values(base, vals)
+
+    return lists, stage, base + 300 * S_NS
+
+
+def agg10x_build(n: int, device=None):
+    """_agg10x_build's population (bench.py:595) in one 1m MetricList on
+    `device`: 40% counters, 40% gauges, 20% timers (default agg types, so
+    timers emit p50/p95/p99), 10% of the gauges on a rollup-only pipeline
+    (Rollup(Sum)) into n_piped // 40 rollup ids. Returns (lists, elems,
+    n_piped, n_rollup_ids), elems [(elem, kind, row)]."""
+    from ..aggregator.elem import Elem, ElemKey
+    from ..aggregator.list import MetricLists
+    from ..metrics import aggregation as magg
+    from ..metrics.metric import MetricType
+    from ..metrics.pipeline import Op, Pipeline
+    from ..metrics.policy import StoragePolicy
+
+    pol = StoragePolicy.parse("1m:40h")
+    lists = MetricLists(device)
+    lst = lists.for_resolution(60 * S_NS)
+    n_counter = (n * 2) // 5
+    n_gauge = (n * 2) // 5
+    n_timer = n - n_counter - n_gauge
+    n_piped = n_gauge // 10
+    n_rollup_ids = max(1, n_piped // 40)
+    elems = []
+    for i in range(n_counter):
+        key = ElemKey(b"bench.a10.c.%d" % i, pol)
+        elems.append((lst.get_or_create(
+            key, lambda k=key: Elem(k, MetricType.COUNTER)), "counter", i))
+    sum_id = magg.AggID.compress([magg.AggType.SUM])
+    last_id = magg.AggID.compress([magg.AggType.LAST])
+    for i in range(n_gauge):
+        if i < n_piped:
+            pipe = Pipeline((Op.roll(
+                b"bench.a10.rollup.%d" % (i % n_rollup_ids), (b"host",),
+                sum_id),))
+            key = ElemKey(b"bench.a10.g.%d" % i, pol, last_id, pipe)
+        else:
+            key = ElemKey(b"bench.a10.g.%d" % i, pol)
+        elems.append((lst.get_or_create(
+            key, lambda k=key: Elem(k, MetricType.GAUGE)), "gauge", i))
+    for i in range(n_timer):
+        key = ElemKey(b"bench.a10.t.%d" % i, pol)
+        elems.append((lst.get_or_create(
+            key, lambda k=key: Elem(k, MetricType.TIMER)), "timer", i))
+    return lists, elems, n_piped, n_rollup_ids
+
+
+def agg10x_planes(n: int, seed: int = 31) -> dict:
+    """bench_agg_rollup_10x's values: 12 per metric (two 1m windows of 6
+    at 10 s) for each kind, drawn from np.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    return {"counter": rng.poisson(5.0, (n, 12)).astype(np.float64),
+            "gauge": rng.standard_normal((n, 12)),
+            "timer": rng.lognormal(0.0, 1.0, (n, 12))}
+
+
+def agg10x_stage(elems, planes: dict) -> None:
+    """Stage both windows of every metric (AGG_BASE_NS and one minute
+    later) from its row of `planes`."""
+    w0, w1 = AGG_BASE_NS, AGG_BASE_NS + 60 * S_NS
+    for e, kind, i in elems:
+        row = planes[kind][i]
+        e.add_values(w0, row[:6])
+        e.add_values(w1, row[6:])
+
+
+def loopback_forward(lst):
+    """The agg benches' forward sink: each rollup partial lands in an elem
+    of `lst` created on first delivery (the local ForwardedWriter's
+    shape), and a round's forwards arrive batched (forward_batch)."""
+    from ..aggregator.elem import Elem, ElemKey
+    from ..metrics.metric import MetricType
+
+    def forward_fn(new_id, t_nanos, value, meta, source_id):
+        key = ElemKey(new_id, meta.storage_policy, meta.aggregation_id,
+                      meta.pipeline, meta.num_forwarded_times)
+        lst.get_or_create(key, lambda: Elem(key, MetricType.GAUGE)).add_value(
+            t_nanos, value)
+
+    forward_fn.forward_batch = lambda items: [forward_fn(*it) for it in items]
+    return forward_fn
+
+
+def hostile_rank_rows(seed: int, b: int, w: int):
+    """A [b, w] f32 tile and [b] int32 counts for the flush's rank
+    selection: ties, -0.0 and +0.0, NaN of both signs, infinities, and
+    empty (the first 4) and full (the next 4) rows."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((b, w)).astype(np.float32)
+    v[:, ::3] = np.round(v[:, ::3])
+    v[rng.random((b, w)) < 0.05] = 0.0
+    v[rng.random((b, w)) < 0.05] = -0.0
+    v[rng.random((b, w)) < 0.04] = np.nan
+    v[rng.random((b, w)) < 0.01] = -np.nan
+    v[rng.random((b, w)) < 0.01] = np.inf
+    v[rng.random((b, w)) < 0.01] = -np.inf
+    c = rng.integers(0, w + 1, b).astype(np.int32)
+    c[:4] = 0
+    c[4:8] = w
+    return v, c
+
+
+def gap_thresholds(values: np.ndarray, k: int, rtol: float = 2e-5,
+                   atol_scale: float = 1e-6) -> list:
+    """k alert thresholds near the (i + 0.5) / k quantiles of `values`,
+    each at the midpoint of a gap between adjacent distinct values that is
+    wider on both sides than the compiled route's bound (rtol 2e-5, atol
+    1e-6 x max|value|, PERF.md section 2): two answers within that bound
+    of each other compare alike against every threshold."""
+    v = np.unique(values[np.isfinite(values)])
+    atol = atol_scale * float(np.abs(v).max())
+    mids = (v[:-1] + v[1:]) / 2
+    half = (v[1:] - v[:-1]) / 2
+    cand = mids[half > rtol * np.abs(v[1:]) + atol]
+    want = np.quantile(v, (np.arange(k) + 0.5) / k)
+    return [float(cand[np.argmin(np.abs(cand - w))]) for w in want]

@@ -1,7 +1,8 @@
 """Murmur3-32 hashing for shard assignment (port of m3_tpu/utils/hashing.py;
 reference: src/dbnode/sharding/shardset.go, murmur3.Sum32(id) % numShards).
 
-`murmur3_32` is the scalar pure-Python version for control-plane rates;
+`murmur3_32` is the scalar pure-Python version for control-plane rates
+(`murmur3_32_cached` is its bounded memo for hot IDs);
 `hash_batch` hashes many IDs at once through the hash kernel
 (ops/codec_kernels.hash_words) over a padded little-endian u32 buffer
 built on the host, dispatched through the compute-fault guard (route
@@ -9,6 +10,7 @@ codec.hash): a fault on the card raises typed."""
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -53,6 +55,25 @@ def murmur3_32(data: bytes, seed: int = 0) -> int:
     h = (h * 0xC2B2AE35) & _M32
     h ^= h >> 16
     return h
+
+
+# Bounded memo for hot-ID shard routing: the aggregator hashes the same
+# metric IDs once per datapoint. Bounded in both dimensions: entry count
+# (lru) and key size (oversize IDs skip the cache), because callers hash
+# client-supplied IDs before any validation. 64k x <= 256 B is <= ~16 MB.
+_MURMUR_CACHE_MAX_KEY = 256
+_murmur3_32_lru = functools.lru_cache(maxsize=65536)(murmur3_32)
+
+
+def murmur3_32_cached(data: bytes, seed: int = 0) -> int:
+    """murmur3_32 through the bounded memo."""
+    if type(data) is not bytes:
+        # bytearray/memoryview hash the same bytes but are unhashable (or
+        # mutable: a cache key that could change under the memo).
+        data = bytes(data)
+    if len(data) > _MURMUR_CACHE_MAX_KEY:
+        return murmur3_32(data, seed)
+    return _murmur3_32_lru(data, seed)
 
 
 def pad_ids(ids: Sequence[bytes]):

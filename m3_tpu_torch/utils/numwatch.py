@@ -5,8 +5,8 @@ serving hooks read one module bool.
 
 What it witnesses, at the compiled programs' host-materialization
 boundaries (the post-program observation point of the `plan` route,
-parallel/compile.py::execute; the reference also observes its
-aggregator's quantile gather, `agg_flush`, which this port has not yet):
+parallel/compile.py::execute) and the aggregator's exact quantile gather
+(`agg_flush`, parallel/agg_flush.exact_quantile_values):
 
   nan-live      a NaN in a NON-padding output lane. Legal only where the
                 reference's static pass proves the module treats NaN

@@ -15,7 +15,10 @@ hold a Database on the card against device="cpu" bit for bit, the seal's
 retained tensors against the budget, and a decode fault to raising. The
 compiled plan route's tests hold each captured graph's replay to its body
 run eagerly on the card bit for bit, and its answers to the CPU plan
-route's under the oracle tolerance."""
+route's under the oracle tolerance. The aggregator flush's rank selection
+on the card equals its torch ops on the CPU index for index, a flush of
+the agg_rollup_10x population on the card equals the CPU's bit for bit,
+and the rules engine's f32 compare on the card equals the CPU's."""
 
 import numpy as np
 import pytest
@@ -708,3 +711,83 @@ def test_plan_fault_on_card_raises_typed_and_quarantines(cuda):
         guard.reset()
     card.execute_range(q, start, end, 30 * 10**9).values
     assert card.last_route()["route"] == "compiled"
+
+
+AGG_QS = (0.0, 0.5, 0.9, 0.95, 0.99, 0.999, 1.0)
+
+
+@pytest.mark.parametrize("w", [128, 256, 1024])
+def test_agg_rank_select_on_card_matches_plain(cuda, w):
+    """The agg flush's rank selection on the card equals the same torch
+    ops on the CPU, index for index, on rows with NaN of both signs, -0.0
+    and +0.0, ties, infinities, and empty and full rows."""
+    from m3_tpu_torch.ops import aggregation as agg
+    from m3_tpu_torch.testing import hostile_rank_rows
+
+    v, c = hostile_rank_rows(w, 2_000, w)
+    vt, ct = torch.from_numpy(v), torch.from_numpy(c)
+    got = agg.quantile_rank_select(vt.to(cuda), ct.to(cuda), AGG_QS)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), agg.quantile_rank_select(vt, ct, AGG_QS))
+
+
+def test_aggregator_flush_on_card_equals_cpu(cuda):
+    """_agg10x_build's population at 3,000 metrics: the card's emissions
+    (both windows and the second stage) equal the CPU's bit for bit."""
+    from m3_tpu_torch import testing as T
+
+    out = []
+    planes = T.agg10x_planes(3_000)
+    for dev in ("cuda", "cpu"):
+        lists, elems, _, _ = T.agg10x_build(3_000, dev)
+        lst = lists.for_resolution(60 * 10**9)
+        T.agg10x_stage(elems, planes)
+        rows = []
+        cap = lambda m, t, v, p, _r=rows: _r.append((m, t, v))  # noqa: E731
+        fwd = T.loopback_forward(lst)
+        for s in (120, 180):
+            lst.flush(T.AGG_BASE_NS + s * 10**9, cap, fwd)
+        out.append(sorted(rows))
+    assert out[0] == out[1] and len(out[0]) > 6_000
+
+
+def test_agg_flush_fault_on_card_raises_typed(cuda):
+    """An injected device fault on the `agg_flush` route raises a typed
+    KernelFault on the card (no fallback) and is counted once."""
+    from m3_tpu_torch.parallel import agg_flush, guard
+    from m3_tpu_torch.testing import faultcomp
+    from m3_tpu_torch.utils.instrument import ROOT
+
+    buckets = [np.arange(n, dtype=np.float64) for n in (3, 0, 200)]
+    counts = np.array([3, 0, 200])
+    key = "telemetry.compute.faults{kind=kernel,route=agg_flush}"
+    guard.reset()
+    before = ROOT.snapshot().get(key, 0)
+    try:
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=1, dispatch_raise=1.0, route_filter="agg_flush")):
+            with pytest.raises(guard.KernelFault):
+                agg_flush.exact_quantile_values(buckets, counts, (0.5,))
+    finally:
+        guard.reset()
+    assert ROOT.snapshot().get(key, 0) - before == 1
+    vals = agg_flush.exact_quantile_values(buckets, counts, (0.5,))
+    assert vals[:, 0].tolist() == [1.0, 0.0, 99.0]
+
+
+def test_rules_compare_on_card_is_f32(cuda):
+    """The rules engine's compare at 4,096 cells or more runs on the
+    engine's device in f32: on the card it equals the CPU's torch compare,
+    so 1.0 + 2**-30 > 1.0 does not fire there."""
+    from m3_tpu_torch.coordinator.rules_engine import _compile_compare
+
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal((400, 20))
+    vals[rng.random((400, 20)) < 0.1] = np.nan
+    th = np.quantile(vals[np.isfinite(vals)], [0.1, 0.5, 0.9])
+    for op in (">", "<=", "!="):
+        assert np.array_equal(_compile_compare(op, cuda)(vals, th),
+                              _compile_compare(op, torch.device("cpu"))(
+                                  vals, th))
+    big = np.full((100, 50), 1.0 + 2.0 ** -30)
+    assert not _compile_compare(">", cuda)(big, np.array([1.0])).any()

@@ -106,9 +106,51 @@ with faultcomp.injected(faultcomp.ComputeFaultPlan(seed=0, corrupt=1.0)):
         pass
 guard.reset()
 
+from m3_tpu_torch.aggregator import Aggregator, CaptureHandler, MetricList
+from m3_tpu_torch.aggregator.flush import FlushTimesManager
+from m3_tpu_torch.aggregator.election import ElectionManager
+from m3_tpu_torch.cluster.kv import MemStore
+from m3_tpu_torch.cluster.services import LeaderService
+from m3_tpu_torch.coordinator.rules_engine import (AlertRule, RecordingRule,
+                                                   RulesEngine)
+from m3_tpu_torch.metrics.metric import MetricType
+from m3_tpu_torch.metrics.policy import StoragePolicy
+from m3_tpu_torch.metrics.transformation import per_second_batch
+from m3_tpu_torch.testing import (AGG_BASE_NS, agg10x_build, agg10x_planes,
+                                  agg10x_stage, loopback_forward)
+
+lists, elems, _, n_ids = agg10x_build(200, "cpu")
+lst = lists.for_resolution(60 * 10**9)
+agg10x_stage(elems, agg10x_planes(200))
+rows = []
+cap = lambda m, t, v, p: rows.append(v)
+fwd = loopback_forward(lst)
+ok = ok and lst.flush(AGG_BASE_NS + 120 * 10**9, cap, fwd) == 400
+ok = ok and lst.flush(AGG_BASE_NS + 180 * 10**9, cap, fwd) == 2 * n_ids
+ok = ok and len(rows) == 2 * (80 + 72) + 2 * 40 * 11 + 2 * n_ids
+store, clock = MemStore(), {"t": AGG_BASE_NS}
+pol = StoragePolicy.parse("1m:40h")
+agg = Aggregator(num_shards=8, clock=lambda: clock["t"],
+                 flush_handler=CaptureHandler(),
+                 election=ElectionManager(LeaderService(
+                     store, "e", "i", clock=lambda: clock["t"])),
+                 flush_times=FlushTimesManager(store, "ss"), device="cpu")
+for i in range(32):
+    agg.add_timed(MetricType.TIMER, b"tm.%d" % i, AGG_BASE_NS, float(i), pol)
+clock["t"] = AGG_BASE_NS + 120 * 10**9
+ok = ok and agg.flush() == 32 and len(agg._flush_handler.metrics) == 32 * 11
+re = RulesEngine(Engine(DictStorage(plan_series), device="cpu"),
+                 lambda rows: None, step_ns=30 * 10**9)
+re.add_recording(RecordingRule(b"r", "sum by (host) (rate(bench_requests[5m]))"))
+re.add_alert(AlertRule(b"a", "avg_over_time(bench_requests[5m])", ">", 1.0))
+res = re.evaluate(int(t[100]))
+ok = ok and res.recorded_rows == 8 and len(res.transitions) == 64
+ok = ok and torch.isnan(per_second_batch(torch.arange(3), torch.ones(3)))[0]
+
 torch.cuda.is_available = lambda: False
 for make in (lambda: Engine(DictStorage(series)),
-             lambda: Database(ShardSet(4))):
+             lambda: Database(ShardSet(4)), lambda: Aggregator(),
+             lambda: MetricList(60 * 10**9)):
     try:
         make()
         ok = False
@@ -126,9 +168,11 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     query path's last slice among them, and queries on the compiled plan
     route), Graphite renders and a placement
     decision, the storage path (write, tick, read and a LocalStorage
-    query), a block merge and a guarded decode under an injected fault in
-    a fresh process; the Engine and the Database also refuse to start
-    without a card unless asked for the CPU."""
+    query), a block merge and a guarded decode under an injected fault,
+    the aggregator tier (the agg_rollup_10x population's two flushes, a
+    managed Aggregator.flush) and a rules engine round, in a fresh
+    process; the Engine, the Database, the Aggregator and a MetricList
+    also refuse to start without a card unless asked for the CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -153,6 +197,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from m3_tpu_torch.storage.shard import Shard, ShardOptions
     from m3_tpu_torch.utils import hashing
     from m3_tpu_torch.utils.hbm import HBMBudget
+    from m3_tpu_torch.aggregator import Aggregator, MetricList, MetricLists
+    from m3_tpu_torch.parallel import agg_flush
 
     ts, vals, npts = ingest.make_example_raw(4, 12, np.random.default_rng(0))
     calls = [
@@ -184,6 +230,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                             np.ones(1, np.int32)),
         lambda: decode_tile(np.zeros((4, 8), np.uint32), npts, 12, 4),
         lambda: HBMBudget(1 << 20).device_put(vals),
+        lambda: Aggregator(),
+        lambda: MetricList(60 * 10**9),
+        lambda: MetricLists(),
+        lambda: agg_flush.exact_quantile_values(
+            [np.ones(3)], np.array([3]), (0.5,)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
