@@ -180,10 +180,39 @@ Phases (each synchronises the device and fails the run on any error):
               into a Database(ShardSet(16)) (the hash kernel) and read back
               through LocalStorage; rows and transitions equal the same
               rounds on Engine(device="cpu") (the compiled route's bounds;
-              transitions as sets). The window and hash kernels must launch
+              transitions as sets). The window and hash kernels must launch.
+  12. durability  the storage node's durable path on the card, in a
+              temporary directory the phase removes; each step's seconds
+              and launches printed beside the card's name and power limit.
+              (a) BASELINE config #12 (bench.py:1440-1571) at its size:
+              100,000 series in 8 shards, index off, commit log on, seed
+              83: write, tick (the pack kernel), flush (the blooms through
+              the hash kernel), 4 WAL waves, Mediator.snapshot, abandoned
+              without close(); fresh card databases bootstrapped with the
+              filesystem and commit-log chain (a warm pass, 2 timed, one
+              traced: series/s, the filesystem / snapshot install / WAL
+              replay split, device busy); every series' read over both
+              blocks equals its acknowledged points bit for bit (5,000 of
+              them also the pre-kill db's reads), the batched
+              replay equals replay_ref (500,000 entries), and a
+              device="cpu" bootstrap gives the same registries and sealed
+              words. (b) config #8's shape as phase 7 (a) writes it, with
+              the index and the commit log (WRITE_BEHIND) on: tick, flush
+              (8 filesets + index segments; ms per fileset), evict, the
+              2,000-read mix through the BlockRetriever twice (reads/s,
+              p99; each read equal to its pre-eviction read; the second
+              pass hits the WiredList with fewer decode launches), a
+              restart (the index from its segments) and four queries over
+              LocalStorage on the default route equal to the pre-restart
+              answers under the query bound. (c) one byte flipped in one
+              of (b)'s data.bin files: every serve path raises typed or
+              serves the right data, the quarantine-only scrubber
+              quarantines exactly that fileset, and a restart leaves its
+              range to the commit log, whose replay restores it (sealed
+              by a tick, flushed again clean) bit for bit
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush, graphite, plan, aggregator), each count set to 0 just before its
+flush, graphite, plan, aggregator, durability), each count set to 0 just before its
 path is driven and read just after. A compiled plan's kernels are recorded once
 in its CUDA graph and launched by each replay: the window kernel's count
 adds its warm-up launch and, per replay, the launches its graph holds.
@@ -651,6 +680,10 @@ def main() -> int:
     for name, n in _aggregator_phase(plan_corpus, t_q).items():
         by_path[name]["aggregator"] = n
     del plan_corpus
+
+    # -- 12. the storage node's durability ----------------------------------
+    for name, n in _durability_phase().items():
+        by_path[name]["durability"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -3095,6 +3128,534 @@ def _rules_phase(plan_corpus, t) -> None:
           f"CPU {worst!r}), {n_trans} transitions (equal sets), firing "
           f"{len(card_re.firing())}; the recorded rate sum read back through "
           f"LocalStorage ({len(got)} cells)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the storage node's durability
+# ---------------------------------------------------------------------------
+
+# Config #12 (bench.py:bench_bootstrap_replay, 1440-1571) at the bench's
+# own size, and config #8's shape (phase 7 (a)) flushed, evicted, read
+# cold and restarted.
+BOOT_SERIES, BOOT_SHARDS, BOOT_WAVES, BOOT_SEED, BOOT_RUNS = (
+    100_000, 8, 4, 83, 2)
+# Phase 12 (a) holds every recovered series to its acknowledged points and
+# this many (seeded) to the pre-kill database's own reads: a read of the
+# pre-kill warm block scans its shard's whole buffer bucket (about 140 us
+# a read at this size on the host of an H100 machine, so all 100,000
+# would take 27 s).
+BOOT_PREKILL_SAMPLE = 5_000
+DUR_GROUPS = 100   # the grp tag of phase 12 (b)'s series: 1,000 series each
+DUR_QUERIES = ('rate(bench_hot{grp="g07"}[5m])',
+               'sum_over_time(bench_hot{grp="g07"}[5m])',
+               'sum by (grp) (rate(bench_hot{grp=~"g1."}[5m]))',
+               'bench_hot{grp=~"g2[0-4]"}')
+# The bootstrap steps that phase 12 (a) times (cProfile).
+BOOT_STEPS = {
+    "bootstrappers (filesystem + commitlog)": ("storage/bootstrap.py",
+                                               "bootstrap"),
+    "of which fileset open (digests, index)": ("persist/fs.py", "__init__"),
+    "of which verify_rows (row adlers, bloom through K3)": (
+        "persist/fs.py", "verify_rows"),
+    "of which install (load_block)": ("storage/shard.py", "load_block"),
+    "snapshot install (load_snapshots)": ("storage/bootstrap.py",
+                                          "load_snapshots"),
+    "WAL replay (replay_wal)": ("storage/bootstrap.py", "replay_wal"),
+    "of which chunk decode": ("persist/commitlog.py", "replay_batches"),
+    "of which routing (hash_batch: pad, H2D, K3, D2H)": (
+        "utils/hashing.py", "hash_batch"),
+    "of which buffer append": ("storage/buffer.py", "write_batch"),
+}
+
+
+def _durability_phase() -> dict:
+    """Phase 12: the storage node's durable path on the card, in a
+    temporary directory the phase removes. (a) config #12 at its own size:
+    seed, abandon, bootstrap; (b) config #8's shape with the index and the
+    commit log: flush, evict, cold reads through the BlockRetriever,
+    restart, queries; (c) one flipped byte in one of (b)'s data.bin files:
+    the quarantine-only scrubber, detect-or-serve reads, a restart that
+    leaves the range to the commit log. Returns the kernels' launches over
+    the phase (the counts set to 0 just before it)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_durability_")
+    try:
+        ck.reset_launch_counts()
+        wk.window_stat.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _boot_config12(os.path.join(root, "c12"))
+        state = _flush_evict_restart(os.path.join(root, "c8"))
+        _scrub_fallthrough(state)
+        torch.cuda.synchronize()
+        launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase(f"durability: phase 12 in {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches}")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash")),
+          f"phase 12 did not launch the pack, decode and hash kernels: "
+          f"{launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Steps:
+    """Host-clock seconds of a phase's steps (each ends in a
+    synchronise), printed as they end beside the card, and the kernels'
+    launches each step made."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        import torch
+
+        from m3_tpu_torch.ops import codec_kernels as ck
+
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = ck.launch_counts()
+        moved = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        _card(f"{self.label} {name}: {secs!r} s host clock, launches {moved}")
+
+
+def _read_all_series(db, ns: bytes, ids, start: int, end: int):
+    return [db.read(ns, sid, start, end) for sid in ids]
+
+
+def _same_reads(got, want) -> bool:
+    return all(a[0].tobytes() == b[0].tobytes()
+               and np.asarray(a[1], np.float64).tobytes()
+               == np.asarray(b[1], np.float64).tobytes()
+               for a, b in zip(got, want)) and len(got) == len(want)
+
+
+def _boot_config12(root: str) -> None:
+    """Phase 12 (a): config #12 at the bench's size (bench.py:1477-1515)
+    with the commit log on: BOOT_SERIES series in BOOT_SHARDS shards, index
+    off, a flushed 2 h block, BOOT_WAVES WAL waves into the next block (one
+    checksummed chunk each), Mediator.snapshot, abandoned without close();
+    then fresh card databases bootstrapped with the filesystem and
+    commit-log chain: a warm pass, BOOT_RUNS timed recoveries and a traced
+    one. Every series' read over both blocks equals its acknowledged points
+    bit for bit, and BOOT_PREKILL_SAMPLE of them the pre-kill db's reads;
+    the batched replay equals replay_ref; a device="cpu"
+    bootstrap of the same dir gives the same registries and sealed words."""
+    import torch
+
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.persist import commitlog as cl
+    from m3_tpu_torch.persist.fs import PersistManager
+    from m3_tpu_torch.storage.bootstrap import (BootstrapContext,
+                                                BootstrapProcess)
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.mediator import Mediator
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    step = _Steps("durability (a)")
+    ns = b"bench"
+    n = BOOT_SERIES
+    acked_t, acked_v = [], []
+    t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
+    now = {"t": t0}
+    cl_dir = os.path.join(root, "commitlog")
+    opts = NamespaceOptions(index_enabled=False)
+    pm = PersistManager(os.path.join(root, "data"))
+    ids = [b"boot-%07d" % i for i in range(n)]
+    rng = np.random.default_rng(BOOT_SEED)
+    with step("seed: write the old block (K3)"):
+        log = cl.CommitLog(cl_dir)
+        db = Database(ShardSet(BOOT_SHARDS), commitlog=log,
+                      clock=lambda: now["t"])
+        db.ensure_namespace(ns, opts)
+        now["t"] = t0 + MINUTE_NS
+        acked_t.append(np.full(n, t0, np.int64))
+        acked_v.append(rng.standard_normal(n))
+        db.write_batch(ns, ids, acked_t[-1], acked_v[-1])
+    with step("seed: tick (K1 seals)"):
+        now["t"] = t0 + BLOCK_NS + 11 * MINUTE_NS
+        sealed = db.tick()["sealed"]
+    check(sealed == BOOT_SHARDS, f"tick sealed {sealed}")
+    with step("seed: flush (8 filesets, blooms through K3)"):
+        flushed = db.flush(pm)
+    check(flushed == BOOT_SHARDS, f"flushed {flushed}")
+    bs1 = t0 + BLOCK_NS
+    gap = BLOCK_NS // (BOOT_WAVES + 2)
+    with step(f"seed: {BOOT_WAVES} WAL waves"):
+        for wv in range(BOOT_WAVES):
+            ts_w = bs1 + wv * gap + 11 * MINUTE_NS + 12 * MINUTE_NS
+            now["t"] = ts_w
+            acked_t.append(np.full(n, ts_w, np.int64))
+            acked_v.append(rng.standard_normal(n))
+            db.write_batch(ns, ids, acked_t[-1], acked_v[-1])
+            log.flush()
+    with step("seed: Mediator.snapshot (K1)"):
+        snaps = Mediator(db, pm).snapshot(now["t"])
+    check(snaps == BOOT_SHARDS, f"snapshotted {snaps}")
+    # Abandoned without close(): the disk as a SIGKILL leaves it.
+
+    def recover(device=None):
+        fresh = Database(ShardSet(BOOT_SHARDS), clock=lambda: now["t"],
+                         device=device)
+        fresh.ensure_namespace(ns, opts)
+        res = BootstrapProcess(
+            chain=("filesystem", "commitlog"),
+            ctx=BootstrapContext(persist=pm, commitlog_dir=cl_dir,
+                                 shard_lookup=fresh.shard_set.lookup)
+        ).run(fresh, now_ns=now["t"])
+        if fresh.device.type == "cuda":
+            torch.cuda.synchronize()
+        return fresh, res
+
+    with step("bootstrap, warm pass"):
+        got, res = recover()
+    recovered = sum(s.num_series() for s in got.namespace(ns).shards.values())
+    check(recovered == n, f"recovered {recovered}/{n} series")
+    check(res[ns].notes == [] and res[ns].unfulfilled.is_empty(),
+          f"bootstrap notes {res[ns].notes}, unfulfilled "
+          f"{res[ns].unfulfilled}")
+    dts = []
+    for _ in range(BOOT_RUNS):
+        t1 = time.perf_counter()
+        recover()
+        dts.append(time.perf_counter() - t1)
+    with _instrumented(BOOT_STEPS) as traced:
+        recover()
+    split = traced["split"]
+    fs_s = (split["bootstrappers (filesystem + commitlog)"]
+            - split["snapshot install (load_snapshots)"]
+            - split["WAL replay (replay_wal)"])
+    _card(f"durability (a) recovery to serving-ready: {n} series, "
+          f"{BOOT_SHARDS} shards, {BOOT_WAVES} WAL waves; runs {dts} s, "
+          f"{n / min(dts)!r} series/s (best of {BOOT_RUNS}); traced run "
+          f"{traced['wall']!r} s: filesystem {fs_s!r} s, snapshot install "
+          f"{split['snapshot install (load_snapshots)']!r} s, WAL replay "
+          f"{split['WAL replay (replay_wal)']!r} s; {_split_text(traced)}")
+    end = now["t"] + BLOCK_NS
+    with step(f"reads of all {n} recovered series (K2) against their "
+              f"acknowledged points"):
+        have = _read_all_series(got, ns, ids, 0, end)
+    acked_t = np.stack(acked_t, axis=1)
+    acked_v = np.stack(acked_v, axis=1)
+    check(_same_reads(have, list(zip(acked_t, acked_v))),
+          "a recovered series differs from its acknowledged points")
+    sample = np.random.default_rng(BOOT_SEED).choice(
+        n, BOOT_PREKILL_SAMPLE, replace=False)
+    with step(f"reads of {BOOT_PREKILL_SAMPLE} series from the pre-kill db"):
+        want = _read_all_series(db, ns, [ids[i] for i in sample], 0, end)
+    check(_same_reads([have[i] for i in sample], want),
+          "a recovered series differs from the pre-kill db's read")
+    with step("oracle: replay_batches against replay_ref"):
+        ref = list(cl.replay_ref(cl_dir))
+        new = [(a, b, int(c), float(d)) for bt in cl.replay_batches(cl_dir)
+               for a, b, c, d in zip(bt.namespaces, bt.ids, bt.t_ns,
+                                     bt.values)]
+    check(len(ref) == n * (1 + BOOT_WAVES) and new == ref,
+          f"the batched replay differs from replay_ref ({len(ref)} entries)")
+    with step("bootstrap on the CPU (the plain versions)"):
+        host, _ = recover("cpu")
+    for sid, shard in got.namespace(ns).shards.items():
+        other = host.namespace(ns).shards[sid]
+        check(shard.registry.all_ids() == other.registry.all_ids(),
+              f"shard {sid}: the card's registry differs from the CPU's")
+        check(sorted(shard.blocks) == sorted(other.blocks),
+              f"shard {sid}: block starts differ")
+        for bstart, blk in shard.blocks.items():
+            oblk = other.blocks[bstart]
+            check(np.asarray(blk.words).tobytes()
+                  == np.asarray(oblk.words).tobytes()
+                  and np.array_equal(blk.nbits, oblk.nbits)
+                  and np.array_equal(blk.npoints, oblk.npoints),
+                  f"shard {sid} block {bstart}: sealed words differ")
+    phase(f"durability (a): {n} series recovered on the card, every read "
+          f"equal to its acknowledged points ({BOOT_PREKILL_SAMPLE} to the "
+          f"pre-kill db's reads), the batched replay equal to "
+          f"replay_ref ({len(ref)} entries), registries and sealed words "
+          f"equal to a CPU bootstrap")
+    del db, got, host, want, have, ref, new
+
+
+def _flush_evict_restart(root: str) -> dict:
+    """Phase 12 (b): config #8's shape as phase 7 (a) writes it (100,000
+    series in 4 shards, two 2 h blocks of 120 points, seed 53; each
+    series' value the step's draw plus its index, so rows differ) with the
+    namespace index on (tags on the first write) and the commit log on
+    (WRITE_BEHIND); tick, flush (8 filesets + index segments), evict, the
+    2,000-read hot-set mix through the BlockRetriever twice, then a
+    restart from the filesystem and commit-log chain and four queries
+    over LocalStorage equal to the pre-restart answers (taken before the
+    eviction). Returns what (c) needs."""
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.persist import commitlog as cl
+    from m3_tpu_torch.persist.fs import PersistManager
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.storage import LocalStorage
+    from m3_tpu_torch.storage.bootstrap import (BootstrapContext,
+                                                BootstrapProcess)
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.retriever import BlockRetriever
+
+    step = _Steps("durability (b)")
+    ns = b"bench"
+    n = STORE_SERIES
+    rng = np.random.default_rng(STORE_SEED)
+    t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
+    step_ns = BLOCK_NS // STORE_PPB
+    now = {"t": t0}
+    opts = NamespaceOptions(index_enabled=True, snapshot_enabled=False,
+                            retention_ns=4 * 24 * 3600 * 10**9)
+    cl_dir = os.path.join(root, "commitlog")
+    pm = PersistManager(os.path.join(root, "data"))
+    retr = BlockRetriever(pm)
+    db = Database(ShardSet(STORE_SHARDS), commitlog=cl.CommitLog(cl_dir),
+                  clock=lambda: now["t"], retriever=retr)
+    db.ensure_namespace(ns, opts)
+    ids = [b"hot-%06d" % i for i in range(n)]
+    tags = [{b"__name__": b"bench_hot", b"grp": b"g%02d" % (i % DUR_GROUPS)}
+            for i in range(n)]
+    offsets = np.arange(n, dtype=np.float64)
+    vals_by_step = rng.standard_normal((2 * STORE_PPB,))
+    with step(f"write {2 * STORE_PPB} batches of {n} (K3, WAL)"):
+        for s in range(2 * STORE_PPB):
+            ts_i = t0 + s * step_ns
+            now["t"] = ts_i
+            db.write_batch(ns, ids, np.full(n, ts_i, np.int64),
+                           offsets + vals_by_step[s],
+                           tags=tags if s == 0 else None)
+    with step("tick (K1 seals)"):
+        now["t"] = t0 + 2 * BLOCK_NS + 11 * MINUTE_NS
+        sealed = db.tick()["sealed"]
+    check(sealed == 2 * STORE_SHARDS, f"tick sealed {sealed}")
+    n_sets = 2 * STORE_SHARDS
+    before = ck.launch_counts()["hash"]
+    f0 = time.perf_counter()
+    flushed = db.flush(pm)
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - f0
+    bloom_launches = ck.launch_counts()["hash"] - before
+    segments = flushed - n_sets
+    _card(f"durability (b) flush: {n_sets} filesets + {segments} index "
+          f"segments in {flush_s!r} s, {flush_s / n_sets * 1e3!r} ms per "
+          f"fileset; {bloom_launches} hash launches (two a bloom)")
+    check(segments >= 1 and bloom_launches == 2 * n_sets,
+          f"flush wrote {flushed}, blooms launched {bloom_launches}")
+
+    n_hot = max(1, int(n * HOT_FRAC))
+    hot_ids = rng.permutation(n)[:n_hot]
+    draws = rng.random(HOT_READS)
+    mix = np.where(draws < HOT_WEIGHT,
+                   hot_ids[rng.integers(0, n_hot, HOT_READS)],
+                   rng.integers(0, n, HOT_READS))
+    start, end = t0, t0 + 2 * BLOCK_NS
+    mix_ids = [ids[int(i)] for i in mix]
+    with step("the read mix before eviction"):
+        want = _read_all_series(db, ns, mix_ids, start, end)
+    q_start, q_end = t0 + 30 * MINUTE_NS, t0 + 2 * BLOCK_NS - MINUTE_NS
+    before_ans = {}
+    with step("the four queries before the restart"):
+        eng = Engine(LocalStorage(db, ns))
+        for q in DUR_QUERIES:
+            before_ans[q] = eng.execute_range(q, q_start, q_end, STEP_NS)
+            before_ans[q].values
+    with step("evict_flushed"):
+        evicted = db.evict_flushed()
+    check(evicted == n_sets, f"evicted {evicted}")
+
+    def cold_pass():
+        durs = np.empty(HOT_READS)
+        out = []
+        d0 = ck.launch_counts()["decode"]
+        for i, sid in enumerate(mix_ids):
+            r0 = time.perf_counter()
+            out.append(db.read(ns, sid, start, end))
+            durs[i] = time.perf_counter() - r0
+        return out, durs, ck.launch_counts()["decode"] - d0
+
+    passes = []
+    for k in range(2):
+        got, durs, launches = cold_pass()
+        check(_same_reads(got, want),
+              f"cold pass {k + 1}: a read differs from its pre-eviction "
+              f"read")
+        passes.append(launches)
+        _card(f"durability (b) cold reads through the BlockRetriever, pass "
+              f"{k + 1}: {float(HOT_READS / durs.sum())!r} reads/s, p99 "
+              f"{float(np.quantile(durs, 0.99)) * 1e3!r} ms, mean "
+              f"{float(durs.mean()) * 1e3!r} ms per read; {launches} decode "
+              f"launches; retriever {dict(retr.stats)}, WiredList "
+              f"{len(retr.wired)} rows")
+    check(retr.stats["wired_hits"] > 0 and passes[1] < passes[0],
+          f"the second pass did not hit the WiredList: {passes}, "
+          f"{retr.stats}")
+
+    log_dir = db.commitlog.directory
+    # The restart: a fresh database from the disk (the old one stays
+    # unclosed, as after a SIGKILL).
+    with step("restart: bootstrap (filesystem + commitlog)"):
+        db2 = Database(ShardSet(STORE_SHARDS), clock=lambda: now["t"])
+        db2.ensure_namespace(ns, opts)
+        res = BootstrapProcess(
+            chain=("filesystem", "commitlog"),
+            ctx=BootstrapContext(persist=pm, commitlog_dir=log_dir,
+                                 shard_lookup=db2.shard_set.lookup)
+        ).run(db2, now_ns=now["t"])
+    check(res[ns].notes == [], f"restart notes {res[ns].notes}")
+    check(sum(s.num_series() for s in db2.namespace(ns).shards.values())
+          == n, "the restart lost series")
+    eng2 = Engine(LocalStorage(db2, ns))
+    for q in DUR_QUERIES:
+        w0 = wk.window_stat.launches
+        q0 = time.perf_counter()
+        blk = eng2.execute_range(q, q_start, q_end, STEP_NS)
+        blk.values
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - q0
+        route = eng2.last_route()
+        rel, absd = _check_query(q, blk, before_ans[q], "after the restart")
+        check(blk.values.shape[0] > 0, f"{q}: no series after the restart")
+        if q.startswith("sum_over_time"):
+            check(route["route"] == "compiled"
+                  and wk.window_stat.launches > w0,
+                  f"{q}: the window kernel did not run in its plan graph "
+                  f"({route})")
+        _card(f"durability (b) query after the restart {q!r}: "
+              f"{tuple(blk.values.shape)}, {secs!r} s, route "
+              f"{route['route']}, window launches "
+              f"{wk.window_stat.launches - w0}, max rel diff {rel!r}, abs "
+              f"{absd!r} to the pre-restart answer")
+    phase("durability (b): flush, evict, 2 cold passes equal to the "
+          "pre-eviction reads, restart with the index from its segments, "
+          "4 queries equal to the pre-restart answers")
+    return {"db": db2, "pm": pm, "ids": ids, "now": now, "t0": t0,
+            "log_dir": log_dir, "opts": opts}
+
+
+def _scrub_fallthrough(state: dict) -> None:
+    """Phase 12 (c): one byte flipped in one of (b)'s data.bin files (shard
+    0's first block). Every serve path either raises typed or returns the
+    written data; the quarantine-only scrubber quarantines exactly that
+    fileset (and re-schedules the resident block's flush); a restart of
+    shard 0 from the disk leaves the range to the commit log, whose replay
+    restores it: sealed by a tick and flushed to a clean fileset, its
+    reads equal the pre-corruption reads bit for bit."""
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.persist import fs as pfs
+    from m3_tpu_torch.persist.diskio import CorruptionError
+    from m3_tpu_torch.storage.bootstrap import (BootstrapContext,
+                                                BootstrapProcess)
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.scrub import DatabaseScrubber, ScrubOptions
+    from m3_tpu_torch.storage.shard import FlushState
+
+    step = _Steps("durability (c)")
+    db, pm, ids, now, t0 = (state[k] for k in ("db", "pm", "ids", "now",
+                                               "t0"))
+    ns = b"bench"
+    shard0 = [sid for sid in ids if db.shard_set.lookup(sid) == 0]
+    start, end = t0, t0 + 2 * BLOCK_NS
+    with step(f"reads of shard 0's {len(shard0)} series before the flip"):
+        want = _read_all_series(db, ns, shard0, start, end)
+    path = dict(pm.list_filesets(ns, 0))[t0]
+    reader = pfs.FilesetReader(path)
+    clean = np.array(reader._words)
+    entries = list(reader.entries)
+    del reader
+    with open(os.path.join(path, pfs.DATA_FILE), "rb+") as f:
+        f.seek(3)
+        b = f.read(1)
+        f.seek(3)
+        f.write(bytes([b[0] ^ 0x10]))
+    with step("serve paths over the rotten fileset"):
+        try:
+            pfs.FilesetReader(path, verify=False).to_block()[0].read_all()
+            check(False, "a block read of the rotten fileset served")
+        except CorruptionError as err:
+            check(err.rows == [0], f"rotten rows {err.rows}")
+        seeker = pfs.Seeker(path)
+        typed = served = 0
+        for e in entries:
+            try:
+                got = seeker.seek(e.id)
+            except CorruptionError:
+                typed += 1
+                continue
+            check(got is not None and got[0].tobytes()
+                  == clean[e.row].tobytes(),
+                  f"the Seeker served a wrong row for {e.id!r}")
+            served += 1
+    check(typed == 1 and served == len(entries) - 1,
+          f"seeks: {typed} typed errors, {served} right rows")
+    quarantined = []
+    real_quarantine = pfs.quarantine_fileset
+
+    def record(p, *a, **k):
+        quarantined.append(p)
+        return real_quarantine(p, *a, **k)
+
+    pfs.quarantine_fileset = record
+    try:
+        with step("DatabaseScrubber.run (quarantine-only)"):
+            st = DatabaseScrubber(db, pm, opts=ScrubOptions(
+                seed=1, max_bytes_per_s=0)).run(now_ns=now["t"])[ns]
+    finally:
+        pfs.quarantine_fileset = real_quarantine
+    check(st.corrupt_found == 1 and st.quarantined == 1
+          and quarantined == [path],
+          f"the scrubber quarantined {quarantined}, stats {st}")
+    check(st.unquarantined == 1 and db.namespace(ns).shards[0]
+          .flush_states[t0] == FlushState.FAILED,
+          "the resident block was not re-scheduled for flush")
+    left = [(s, b) for s in range(STORE_SHARDS)
+            for b, _p in pm.list_filesets(ns, s)]
+    check(len(left) == 2 * STORE_SHARDS - 1 and (0, t0) not in left,
+          f"filesets left {left}")
+    _card(f"durability (c) scrub: {st}")
+    with step("reads of shard 0 after the scrub"):
+        check(_same_reads(_read_all_series(db, ns, shard0, start, end), want),
+              "a read after the scrub differs")
+    with step("restart of shard 0: filesystem, then the commit log"):
+        db3 = Database(ShardSet(STORE_SHARDS), clock=lambda: now["t"])
+        db3.ensure_namespace(ns, state["opts"])
+        res = BootstrapProcess(
+            chain=("filesystem", "commitlog"),
+            ctx=BootstrapContext(persist=pm, commitlog_dir=state["log_dir"],
+                                 shard_lookup=db3.shard_set.lookup)
+        ).run(db3, now_ns=now["t"], shard_ids=[0])[ns]
+    fs_ranges = res.claimed["filesystem"].ranges(0)
+    check(not any(s <= t0 < e for s, e in fs_ranges)
+          and any(s <= t0 < e for s, e in res.claimed["commitlog"].ranges(0)),
+          f"claims {res.claimed}")
+    with step("tick (K1 seals the replayed range) and flush"):
+        sealed = db3.tick()["sealed"]
+        flushed = db3.flush(pm)
+    check(sealed == 1 and flushed == 1,
+          f"the replayed range sealed {sealed}, flushed {flushed}")
+    pfs.FilesetReader(dict(pm.list_filesets(ns, 0))[t0]).verify_rows()
+    with step("reads of shard 0 after the restart"):
+        got = _read_all_series(db3, ns, shard0, start, end)
+    check(_same_reads(got, want),
+          "the commit log's replay did not restore the quarantined range")
+    phase(f"durability (c): the flipped fileset detected on every serve "
+          f"path, quarantined alone by the scrubber; after a restart the "
+          f"commit log restored its {len(shard0)} series bit for bit")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

@@ -2,14 +2,16 @@
 src/dbnode/storage/database.go `db` + mediator.go background lifecycle).
 
 Owns namespaces, routes writes by shard hash (the hash kernel, once per
-write_batch) and drives the tick -> seal -> cleanup lifecycle. Background
-behavior is explicit (`tick()`) so tests and services control timing.
+write_batch), appends to the commit log, and drives the tick -> seal ->
+flush -> cleanup lifecycle. Background behavior is explicit (`tick()`,
+`flush()`) so tests and services control timing; storage/mediator.py
+wraps it in a ticker thread.
 
 `device` (None: the CUDA card, raising without one) is threaded down to
-every namespace and shard: routing, seals and sealed-block reads run
-there. Not ported yet: the commit log (a Database takes commitlog=None
-only and raises CommitLogUnsupported otherwise), the fileset flush, the
-disk retriever and bootstrap."""
+every namespace and shard: routing, seals, sealed-block reads and the
+blooms of flushed filesets run there. The commit log, the filesets and
+bootstrap write and read the reference's formats byte for byte
+(persist/commitlog.py, persist/fs.py, storage/bootstrap.py)."""
 
 from __future__ import annotations
 
@@ -20,16 +22,16 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 
 from ..device import resolve
+from ..persist.diskio import DiskWriteError
 from ..utils import tracing
 from ..utils.health import DiskHealth, Priority
+from ..utils.instrument import ROOT
 from ..utils.limits import Backpressure
+from ..utils.retry import RetryOptions, Retrier
 from .namespace import Namespace, NamespaceOptions
 from .series import charge_read
 
-
-class CommitLogUnsupported(NotImplementedError):
-    """The port has no commit log yet: a Database takes commitlog=None."""
-
+_FLUSH_METRICS = ROOT.sub_scope("storage.flush")
 
 def fold_tags(out: Dict[bytes, set], tags, filter_set, name_only: bool):
     """Fold one series' tags into a CompleteTags accumulator — the single
@@ -45,25 +47,33 @@ def fold_tags(out: Dict[bytes, set], tags, filter_set, name_only: bool):
 
 class Database:
     def __init__(self, shard_set, commitlog=None,
-                 clock: Callable[[], int] = None, *, device=None):
-        """shard_set: parallel.sharding.ShardSet; commitlog: must be None
-        (CommitLogUnsupported otherwise); device: where routing, seals and
-        reads run (None: the CUDA card)."""
-        if commitlog is not None:
-            raise CommitLogUnsupported(
-                "m3_tpu_torch.storage.Database has no commit log yet; "
-                "pass commitlog=None")
+                 clock: Callable[[], int] = None, retriever=None, *,
+                 device=None):
+        """shard_set: parallel.sharding.ShardSet; commitlog:
+        persist.commitlog.CommitLog; retriever: storage.retriever.
+        BlockRetriever for disk-backed reads; device: where routing, seals
+        and reads run (None: the CUDA card)."""
         self.shard_set = shard_set
         self.device = resolve(device)
+        self.commitlog = commitlog
         self.clock = clock or (lambda: time.time_ns())
+        self.retriever = retriever
         self.namespaces: Dict[bytes, Namespace] = {}
         # Guards namespace map mutation; iterating code snapshots
         # values() under the GIL.
         self._ns_lock = threading.Lock()
-        # Durable-write health: a read-only posture sheds NORMAL/BULK
-        # writes with Backpressure while CRITICAL traffic and reads keep
-        # flowing (fed by the flush and the commit log once ported).
+        self._bootstrapped = False
+        # Durable-write health: WAL/flush failures degrade the node to a
+        # read-only posture (NORMAL/BULK writes shed with Backpressure,
+        # CRITICAL and reads keep flowing); the first durable success
+        # lifts it.
         self.disk_health = DiskHealth(trip_after=3)
+        # Per-block flush retry: one quick re-attempt absorbs a transient
+        # media error; a persistent one surfaces typed, marks the block
+        # FAILED (still on the flush schedule) and degrades health.
+        self._flush_retrier = Retrier(RetryOptions(
+            max_attempts=2, initial_backoff_s=0.02, max_backoff_s=0.1,
+            jitter=False))
 
     # ------------------------------------------------------------- namespaces
 
@@ -73,7 +83,7 @@ class Database:
             if name in self.namespaces:
                 raise ValueError(f"namespace {name!r} already exists")
             ns = Namespace(name, opts, self.shard_set.all_shard_ids(), index=index,
-                           device=self.device)
+                           retriever=self.retriever, device=self.device)
             self.namespaces[name] = ns
             return ns
 
@@ -95,6 +105,13 @@ class Database:
             return self.create_namespace(name, opts, index=index)
         except ValueError:
             return self.namespaces[name]  # lost a creation race: reuse
+
+    def set_retriever(self, retriever):
+        """Attach a disk retriever (serving-path cold reads) to every
+        namespace, current and future."""
+        self.retriever = retriever
+        for ns in list(self.namespaces.values()):
+            ns.set_retriever(retriever)
 
     def drop_namespace(self, name: bytes):
         """Remove a namespace (namespace_watch.go applying a registry
@@ -118,7 +135,7 @@ class Database:
 
     def write(self, namespace: bytes, series_id: bytes, t_ns: int, value: float,
               tags: Optional[dict] = None, priority=None):
-        """database.go:536 Write."""
+        """database.go:536 Write + :561 commit log append."""
         ns = self.namespace(namespace)
         self._check_writable(priority)
         shard_id = self.shard_set.lookup(series_id)
@@ -128,6 +145,15 @@ class Database:
         else:
             ns.shard_for(shard_id).write(series_id, t_ns, value, now, tags,
                                          priority=priority)
+        if self.commitlog is not None and ns.opts.writes_to_commitlog:
+            try:
+                self.commitlog.write(namespace, series_id, t_ns, value, tags)
+            except DiskWriteError:
+                # WAL append/fsync failure is an ACK failure: the caller
+                # sees the typed error, nothing is silently accepted.
+                self.disk_health.failure()
+                raise
+            self.disk_health.success()
 
     def write_batch(self, namespace: bytes, ids: Sequence[bytes], ts, vals,
                     tags: Optional[Sequence[Optional[dict]]] = None,
@@ -165,19 +191,53 @@ class Database:
         if tags:
             tags_arr = np.empty(len(ids), object)
             tags_arr[:] = tags
-        for sid in np.unique(shard_ids):
-            m = shard_ids == sid
-            ns.shard_for(int(sid)).write_batch(
-                ids_arr[m].tolist(), ts[m], vals[m], now,
-                tags=tags_arr[m].tolist() if tags_arr is not None else None,
-                priority=pri,
-            )
+        log = (self.commitlog is not None and ns.opts.writes_to_commitlog)
+        applied = np.zeros(len(ids), bool) if log else None
+        try:
+            for sid in np.unique(shard_ids):
+                m = shard_ids == sid
+                ns.shard_for(int(sid)).write_batch(
+                    ids_arr[m].tolist(), ts[m], vals[m], now,
+                    tags=tags_arr[m].tolist() if tags_arr is not None else None,
+                    priority=pri,
+                )
+                if applied is not None:
+                    applied |= m
+        except BaseException:
+            # A later shard's queue shed (Backpressure) or window check
+            # aborted the batch mid-loop: earlier shards' writes are
+            # already query-visible, so they MUST reach the commit log
+            # before the error propagates — otherwise a restart replay
+            # silently drops accepted datapoints.
+            if applied is not None and applied.any():
+                try:
+                    self.commitlog.write_batch(
+                        namespace, ids_arr[applied].tolist(), ts[applied],
+                        vals[applied],
+                        tags_arr[applied].tolist() if tags_arr is not None
+                        else None)
+                except DiskWriteError:
+                    # The rescue append itself hit the disk fault: the
+                    # typed WAL error supersedes the shed — callers must
+                    # treat the whole batch as un-acked.
+                    self.disk_health.failure()
+                    raise
+            raise
+        if log:
+            try:
+                self.commitlog.write_batch(namespace, ids, ts, vals, tags)
+            except DiskWriteError:
+                self.disk_health.failure()
+                raise
+            self.disk_health.success()
 
     def _check_writable(self, priority) -> None:
         """Read-only posture under persistent disk faults: shed NORMAL
         and BULK writes with typed Backpressure (producers back off, the
         data is never half-accepted) while CRITICAL traffic keeps
-        flowing. Reads are untouched."""
+        flowing. Reads are untouched. Recovery is automatic: flush
+        retries keep probing the disk and the first durable success
+        clears the posture."""
         if priority == Priority.CRITICAL:
             return
         if self.disk_health.read_only():
@@ -258,8 +318,82 @@ class Database:
                 totals[k] += r[k]
         return totals
 
+    def flush(self, persist_manager, now_ns: Optional[int] = None) -> int:
+        """Flush all sealed-but-unflushed blocks through a persist manager
+        (storage/flush.go); returns number of filesets written (index
+        segments included). Each fileset's bloom hashes its IDs on the
+        block's device."""
+        now = now_ns if now_ns is not None else self.clock()
+        flushed = 0
+        for ns in list(self.namespaces.values()):
+            for shard in ns.shards.values():
+                wrote = False
+                for bs in shard.flushable(now):
+                    blk = shard.blocks.get(bs)
+                    if blk is None:
+                        continue
+                    try:
+                        self._flush_retrier.attempt(
+                            persist_manager.write_block, ns.name,
+                            shard.shard_id, blk, shard.registry)
+                    except DiskWriteError:
+                        # Typed flush failure after the retry budget:
+                        # the block stays FAILED (flushable() keeps it
+                        # on the schedule), health degrades toward the
+                        # read-only posture, and the sweep moves on —
+                        # one bad block must not strand the rest.
+                        shard.mark_flushed(bs, ok=False)
+                        self.disk_health.failure()
+                        _FLUSH_METRICS.counter("flush_failed").inc()
+                        continue
+                    shard.mark_flushed(bs)
+                    self.disk_health.success()
+                    flushed += 1
+                    wrote = True
+                if wrote and self.retriever is not None:
+                    self.retriever.invalidate(ns.name, shard.shard_id)
+            if ns.index is not None:
+                # Persist cold index blocks next to the data filesets
+                # (persist_manager.go:193-332 index segment persist).
+                from ..index import persist as idx_persist
+
+                try:
+                    flushed += len(idx_persist.flush_index(
+                        persist_manager.root, ns.name, ns.index, now,
+                        ns.opts.retention_ns))
+                except OSError:
+                    # Index segments rebuild from data filesets at
+                    # bootstrap: degrade health, count, keep the sweep.
+                    self.disk_health.failure()
+                    _FLUSH_METRICS.counter("index_flush_failed").inc()
+        if self.commitlog is not None and flushed:
+            self.commitlog.rotate()
+        return flushed
+
+    def evict_flushed(self) -> int:
+        """Drop in-memory copies of durably-flushed blocks; reads fall
+        through to the retriever. No-op without a retriever (evicting would
+        lose the only copy until retention expiry)."""
+        if self.retriever is None:
+            return 0
+        evicted = 0
+        for ns in list(self.namespaces.values()):
+            for shard in ns.shards.values():
+                evicted += shard.evict_flushed()
+        return evicted
+
     def close(self):
         """Shutdown: drain every shard's insert queue (queued writes are
-        never stranded by teardown — shard_insert_queue.go Stop)."""
+        never stranded by teardown — shard_insert_queue.go Stop), then
+        flush and close the commit log."""
         for ns in list(self.namespaces.values()):
             ns.close()
+        if self.commitlog is not None:
+            self.commitlog.close()
+
+    def mark_bootstrapped(self):
+        self._bootstrapped = True
+
+    @property
+    def bootstrapped(self) -> bool:
+        return self._bootstrapped

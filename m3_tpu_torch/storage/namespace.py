@@ -1,7 +1,8 @@
 """Namespace: retention/blocksize domain owning a shard set (port of
 m3_tpu/storage/namespace.py; reference: src/dbnode/storage/namespace.go
 dbNamespace and storage/namespace options). Its shards seal and read on
-the namespace's `device`."""
+the namespace's `device`; a bound retriever serves their blocks that are
+only on disk."""
 
 from __future__ import annotations
 
@@ -45,10 +46,11 @@ class NamespaceOptions:
 
 class Namespace:
     def __init__(self, name: bytes, opts: NamespaceOptions, shard_ids: Iterable[int],
-                 index=None, device=None):
+                 index=None, retriever=None, device=None):
         self.name = name
         self.opts = opts
         self.index = index  # index.NamespaceIndex when indexing enabled
+        self.retriever = retriever  # storage.retriever.BlockRetriever
         self.device = resolve(device)
         self.shards: Dict[int, Shard] = {}
         for sid in shard_ids:
@@ -62,11 +64,19 @@ class Namespace:
                    on_new_series=self._on_new_series, state=state,
                    on_new_series_batch=self._on_new_series_batch,
                    namespace_name=self.name, device=self.device)
+        if self.retriever is not None:
+            sh.attach_retriever(self.retriever, self.name)
         self.shards[shard_id] = sh
         return sh
 
     def remove_shard(self, shard_id: int):
         self.shards.pop(shard_id, None)
+
+    def set_retriever(self, retriever):
+        """Bind a disk retriever to this namespace and all current shards."""
+        self.retriever = retriever
+        for sh in self.shards.values():
+            sh.attach_retriever(retriever, self.name)
 
     def _on_new_series(self, series_id: bytes, tags: Optional[dict], idx: int):
         if self.index is not None and self.opts.index_enabled and tags is not None:

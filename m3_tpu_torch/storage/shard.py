@@ -12,9 +12,8 @@ drain (shard_insert_queue.go / index_insert_queue.go parity), sync-waited
 or async per ShardOptions.write_new_series_async.
 
 `device` (None: the CUDA card) is where the shard's seals encode and its
-sealed blocks decode. Not ported yet: the disk retriever's cold reads,
-the flush schedule's eviction of durable blocks and the fileset flush
-(they need the persist layer)."""
+sealed blocks decode; blocks only on disk are read through the attached
+BlockRetriever (storage/retriever.py), which decodes on its device."""
 
 from __future__ import annotations
 
@@ -111,6 +110,13 @@ class Shard:
             max_pending=opts.insert_max_pending,
             high_watermark=opts.insert_high_watermark,
             interval_ns=opts.insert_interval_ns)
+        # Disk retriever for cold reads (block/retriever_manager.go hook);
+        # bound by Namespace.assign_shard when the database has one.
+        self._retriever = None
+        self._retriever_ns: Optional[bytes] = None
+        # Updated each tick; disk reads never serve past it even if cleanup
+        # hasn't deleted the fileset yet (None until the first tick).
+        self._retention_cutoff: Optional[int] = None
 
     # ------------------------------------------------------------------ write
 
@@ -296,6 +302,7 @@ class Shard:
                     self.flush_states[bs] = FlushState.NOT_STARTED
                 sealed += 1
         cutoff = now_ns - self.opts.retention_ns
+        self._retention_cutoff = cutoff
         for bs in [b for b in self.blocks if b + self.opts.block_size_ns <= cutoff]:
             cache.invalidate_block(self.blocks[bs])
             del self.blocks[bs]
@@ -309,9 +316,21 @@ class Shard:
 
     # ------------------------------------------------------------------- read
 
+    def attach_retriever(self, retriever, namespace_name: bytes):
+        """Hook a BlockRetriever for cold reads (series.go ReadEncoded's
+        fall-through to the block retriever when a block isn't cached)."""
+        self._retriever = retriever
+        self._retriever_ns = namespace_name
+
     def read(self, series_id: bytes, start_ns: int, end_ns: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Merged datapoints from sealed blocks + mutable buffer in
-        [start, end) (series.go:292 ReadEncoded -> buffer, cached blocks)."""
+        """Merged datapoints from sealed blocks + mutable buffer + disk in
+        [start, end).
+
+        Block starts resident in memory are served from `self.blocks`; block
+        starts only on disk fall through to the retriever (seek + WiredList,
+        one decode launch of one row on a miss), mirroring series.go:292
+        ReadEncoded -> buffer, cached blocks, then the retriever for
+        everything else."""
         idx = self.registry.get(series_id)
         parts_t: List[np.ndarray] = []
         parts_v: List[np.ndarray] = []
@@ -345,9 +364,20 @@ class Shard:
                     except CorruptionError:
                         # A block paged in from a fileset flunked its lazy
                         # row verification mid-serve: drop it and keep
-                        # serving the window from the buffer — never the
-                        # rotten bytes.
+                        # serving the window from buffer/disk coverage —
+                        # never the rotten bytes. The scrubber handles
+                        # the on-disk copy.
                         self._drop_corrupt_block(bs, blocks[bs])
+        if self._retriever is not None:
+            on_disk = self._retriever.block_starts(self._retriever_ns, self.shard_id)
+            for bs in sorted(on_disk):
+                if bs in blocks or not overlaps(bs):
+                    continue
+                if (self._retention_cutoff is not None
+                        and bs + self.opts.block_size_ns <= self._retention_cutoff):
+                    continue  # past retention; cleanup just hasn't run yet
+                clip_append(self._retriever.retrieve(
+                    self._retriever_ns, self.shard_id, bs, series_id))
         if bt is not None and len(bt):
             parts_t.append(bt)
             parts_v.append(bv)
@@ -359,8 +389,10 @@ class Shard:
         t, v = t[order], v[order]
         if len(t) > 1 and (t[:-1] == t[1:]).any():
             # A sealed block and the mutable buffer can briefly cover the
-            # same (series, timestamp): a write racing a seal before the
-            # same-start merge folds it in. Last-arrival wins, matching the buffer's
+            # same (series, timestamp): a snapshot-recovered block with
+            # the WAL tail replayed on top (the conservative chunk-window
+            # overlap), or a write racing a seal before the same-start
+            # merge folds it in. Last-arrival wins, matching the buffer's
             # own drain dedup — parts append blocks-then-buffer and the
             # sort is stable, so keeping the final duplicate keeps the
             # buffer's (newer) value.
@@ -378,6 +410,53 @@ class Shard:
                 del self.blocks[bs]
             self.flush_states.pop(bs, None)
         block_cache.get_cache().invalidate_block(blk)
+
+    # ------------------------------------------------------- flush/bootstrap
+
+    def flushable(self, now_ns: int) -> List[int]:
+        """COLD sealed blocks not yet durably flushed. The writability
+        gate matters for recovery: a snapshot-recovered tile installed
+        for a still-warm window (load_block NOT_STARTED) must not flush
+        yet — a tile-only fileset would make the next restart's
+        filesystem bootstrapper claim the whole block range and
+        range-filter the WAL tail out of replay, silently dropping
+        acked writes. Blocks sealed by tick are past this gate by
+        construction (sealable() uses the same bound)."""
+        with self.write_lock:
+            return sorted(
+                bs for bs, st in self.flush_states.items()
+                if st in (FlushState.NOT_STARTED, FlushState.FAILED)
+                and bs in self.blocks
+                and bs + self.opts.block_size_ns + self.opts.buffer_past_ns
+                <= now_ns
+            )
+
+    def mark_flushed(self, block_start: int, ok: bool = True):
+        with self.write_lock:
+            self.flush_states[block_start] = FlushState.SUCCESS if ok else FlushState.FAILED
+
+    def evict_flushed(self) -> int:
+        """Drop in-memory blocks whose fileset is durable; subsequent reads
+        go through the retriever (the CacheNone/LRU cache policies of
+        series/policy.go:32-48 — memory holds only what isn't yet on disk).
+        The evicted blocks' block-cache residency (retained word tensors,
+        decoded planes) is released with them.
+
+        A block is only evicted when its fileset is actually present on
+        disk: a block installed as durable elsewhere may be the only local
+        copy."""
+        if self._retriever is None:
+            return 0
+        on_disk = self._retriever.block_starts(self._retriever_ns, self.shard_id)
+        evicted = 0
+        cache = block_cache.get_cache()
+        with self.write_lock:
+            for bs in [b for b, st in self.flush_states.items()
+                       if st == FlushState.SUCCESS and b in self.blocks and b in on_disk]:
+                cache.invalidate_block(self.blocks[bs])
+                del self.blocks[bs]
+                evicted += 1
+        return evicted
 
     # ------------------------------------------------------------ install
 

@@ -18,7 +18,10 @@ run eagerly on the card bit for bit, and its answers to the CPU plan
 route's under the oracle tolerance. The aggregator flush's rank selection
 on the card equals its torch ops on the CPU index for index, a flush of
 the agg_rollup_10x population on the card equals the CPU's bit for bit,
-and the rules engine's f32 compare on the card equals the CPU's."""
+and the rules engine's f32 compare on the card equals the CPU's. The
+durable path's blooms, WAL replay routing, recovered blocks and cold
+reads through the retriever on the card equal the CPU's bit for bit, and
+a hash fault on the bloom route raises typed."""
 
 import numpy as np
 import pytest
@@ -791,3 +794,148 @@ def test_rules_compare_on_card_is_f32(cuda):
                                   vals, th))
     big = np.full((100, 50), 1.0 + 2.0 ** -30)
     assert not _compile_compare(">", cuda)(big, np.array([1.0])).any()
+
+
+# ---------------------------------------------------------------------------
+# the durable path: blooms, WAL replay and recovered blocks on the card
+# ---------------------------------------------------------------------------
+
+
+def _durable_dir(root, n=300):
+    """A CPU database's commit log and flushed filesets: one sealed,
+    flushed 2 h block and one warm block in the WAL, abandoned."""
+    import os
+
+    from m3_tpu_torch.persist import commitlog as cl
+    from m3_tpu_torch.persist.fs import PersistManager
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    now = {"t": _T0 + 60 * 10**9}
+    log = cl.CommitLog(os.path.join(root, "cl"))
+    db = Database(ShardSet(4), commitlog=log, clock=lambda: now["t"],
+                  device="cpu")
+    db.ensure_namespace(b"d", NamespaceOptions(index_enabled=False))
+    pm = PersistManager(os.path.join(root, "data"))
+    ids = [b"dur-%05d" % i for i in range(n)]
+    vals = np.random.default_rng(83).standard_normal((2, n))
+    db.write_batch(b"d", ids, np.full(n, _T0), vals[0])
+    now["t"] = _T0 + _BLOCK + 11 * 60 * 10**9
+    db.tick()
+    assert db.flush(pm) == 4
+    db.write_batch(b"d", ids, np.full(n, now["t"]), vals[1])
+    log.flush()
+    return pm, os.path.join(root, "cl"), ids, now
+
+
+def _recover_on(device, pm, cl_dir, now):
+    from m3_tpu_torch.storage.bootstrap import BootstrapContext, BootstrapProcess
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    db = Database(ShardSet(4), clock=lambda: now["t"], device=device)
+    db.ensure_namespace(b"d", NamespaceOptions(index_enabled=False))
+    BootstrapProcess(chain=("filesystem", "commitlog"), ctx=BootstrapContext(
+        persist=pm, commitlog_dir=cl_dir,
+        shard_lookup=db.shard_set.lookup)).run(db, now_ns=now["t"])
+    return db
+
+
+def test_bloom_on_card_equals_cpu(cuda):
+    from m3_tpu_torch.utils.bloom import BloomFilter
+
+    ids = prometheus_ids(20_000, np.random.default_rng(3)) + [b"", b"x" * 700]
+    gpu, cpu = (BloomFilter.for_capacity(len(ids)) for _ in range(2))
+    ck.reset_launch_counts()
+    gpu.add_batch(ids, device=cuda)
+    assert ck.launch_counts()["hash"] == 2
+    cpu.add_batch(ids, device="cpu")
+    assert gpu.tobytes() == cpu.tobytes()
+    assert all(sid in gpu for sid in ids[:200])
+
+
+def test_replay_and_recovered_blocks_on_card_equal_cpu(cuda, fresh_cache,
+                                                       tmp_path):
+    """The WAL replay routes its chunks through the hash kernel, the
+    filesystem bootstrap hashes each bloom there, and the recovered
+    blocks decode on the card: registries, buffers and every read equal
+    a CPU bootstrap of the same dir bit for bit."""
+    pm, cl_dir, ids, now = _durable_dir(str(tmp_path))
+    ck.reset_launch_counts()
+    gpu = _recover_on(cuda, pm, cl_dir, now)
+    counts = ck.launch_counts()
+    assert counts["hash"] >= 4 + 1  # a bloom a fileset, a launch a chunk
+    cpu = _recover_on("cpu", pm, cl_dir, now)
+    for s, shard in gpu.namespace(b"d").shards.items():
+        other = cpu.namespace(b"d").shards[s]
+        assert shard.registry.all_ids() == other.registry.all_ids()
+        for bstart, blk in shard.blocks.items():
+            a, b = blk.read_all(), other.blocks[bstart].read_all()
+            for x, y in zip(a, b):
+                assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
+    before = ck.launch_counts()["decode"]
+    end = now["t"] + 1
+    for sid in ids:
+        ga, ca = gpu.read(b"d", sid, 0, end), cpu.read(b"d", sid, 0, end)
+        assert len(ga[0]) == 2
+        assert ga[0].tobytes() == ca[0].tobytes()
+        assert ga[1].tobytes() == ca[1].tobytes()
+    assert ck.launch_counts()["decode"] > before
+
+
+def test_cold_read_through_retriever_on_card(cuda, fresh_cache, tmp_path):
+    """Flush, evict, then every read through the retriever on the card
+    (one decode launch of one row a miss) equals the pre-eviction read;
+    later passes hit the WiredList, and the third reads the block cache's
+    planes without a launch."""
+    from m3_tpu_torch.persist.fs import PersistManager
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.retriever import BlockRetriever
+
+    now = {"t": _T0}
+    pm = PersistManager(str(tmp_path))
+    retr = BlockRetriever(pm, device=cuda)
+    db = Database(ShardSet(4), clock=lambda: now["t"], retriever=retr)
+    db.ensure_namespace(b"d", NamespaceOptions(index_enabled=False))
+    ids = [b"cold-%04d" % i for i in range(200)]
+    for j in range(6):
+        now["t"] = _T0 + j * 10**10
+        db.write_batch(b"d", ids, np.full(200, now["t"]),
+                       np.full(200, float(j)) + np.arange(200))
+    now["t"] = _T0 + _BLOCK + 11 * 60 * 10**9
+    db.tick()
+    want = [db.read(b"d", sid, 0, now["t"]) for sid in ids]
+    assert db.flush(pm) == 4 and db.evict_flushed() == 4
+    passes, launches = [], []
+    for _ in range(3):
+        before = ck.launch_counts()["decode"]
+        passes.append([db.read(b"d", sid, 0, now["t"]) for sid in ids])
+        launches.append(ck.launch_counts()["decode"] - before)
+    # A miss decodes its row; the second touch of a wired row admits it to
+    # the block cache (one more decode); the third reads the cached plane.
+    assert launches == [len(ids), len(ids), 0]
+    assert retr.stats["seeks"] == len(ids)
+    assert retr.stats["wired_hits"] == 2 * len(ids)
+    for got in passes:
+        for (wt, wv), (gt, gv) in zip(want, got):
+            assert wt.tobytes() == gt.tobytes()
+            assert wv.tobytes() == gv.tobytes()
+
+
+def test_hash_fault_on_the_bloom_route_raises_typed(cuda):
+    """No fallback to a host hash: a fault injected on codec.hash while a
+    bloom hashes on the card raises the guard's typed error."""
+    from m3_tpu_torch.parallel import guard
+    from m3_tpu_torch.testing import faultcomp
+    from m3_tpu_torch.utils.bloom import BloomFilter
+
+    guard.reset()
+    try:
+        plan = faultcomp.ComputeFaultPlan(seed=0, route_filter="codec.hash",
+                                          dispatch_raise=1.0)
+        with faultcomp.injected(plan):
+            with pytest.raises(guard.ComputeError):
+                BloomFilter(1 << 12, 4).add_batch([b"a", b"b"], device=cuda)
+    finally:
+        guard.reset()

@@ -147,10 +147,58 @@ res = re.evaluate(int(t[100]))
 ok = ok and res.recorded_rows == 8 and len(res.transitions) == 64
 ok = ok and torch.isnan(per_second_batch(torch.arange(3), torch.ones(3)))[0]
 
+import os
+import tempfile
+from m3_tpu_torch.index import persist as idx_persist
+from m3_tpu_torch.persist import commitlog as cl
+from m3_tpu_torch.persist.fs import PersistManager
+from m3_tpu_torch.rpc import wire
+from m3_tpu_torch.storage.bootstrap import BootstrapContext, BootstrapProcess
+from m3_tpu_torch.storage.mediator import Mediator
+from m3_tpu_torch.storage.namespace import NamespaceOptions
+from m3_tpu_torch.storage.retriever import BlockRetriever
+from m3_tpu_torch.storage.scrub import DatabaseScrubber
+from m3_tpu_torch.testing import faultfs
+from m3_tpu_torch.utils.lockfile import Lockfile
+
+root = tempfile.mkdtemp()
+lock = Lockfile(os.path.join(root, "node.lock")).acquire()
+hour = 3600 * 10**9
+t0 = (int(t[0]) // (2 * hour)) * 2 * hour
+now = {"t": t0 + 60 * 10**9}
+pm = PersistManager(os.path.join(root, "data"))
+ddb = Database(ShardSet(4), commitlog=cl.CommitLog(os.path.join(root, "cl")),
+               clock=lambda: now["t"], retriever=BlockRetriever(pm, device="cpu"),
+               device="cpu")
+ddb.ensure_namespace(b"d", NamespaceOptions())
+dids = [b"dur-%d" % i for i in range(40)]
+dtags = [{b"__name__": b"dur", b"i": b"%d" % i} for i in range(40)]
+ddb.write_batch(b"d", dids, np.full(40, t0), np.arange(40.0), tags=dtags)
+now["t"] = t0 + 2 * hour + 11 * 60 * 10**9
+ddb.tick()
+ok = ok and ddb.flush(pm) >= 4 and ddb.evict_flushed() >= 1
+ddb.write_batch(b"d", dids, np.full(40, now["t"]), -np.arange(40.0), tags=dtags)
+ok = ok and Mediator(ddb, pm).snapshot(now["t"]) >= 1
+fresh = Database(ShardSet(4), clock=lambda: now["t"], device="cpu")
+fresh.ensure_namespace(b"d", NamespaceOptions())
+BootstrapProcess(chain=("filesystem", "commitlog"), ctx=BootstrapContext(
+    persist=pm, commitlog_dir=os.path.join(root, "cl"),
+    shard_lookup=fresh.shard_set.lookup)).run(fresh)
+for sid in dids:
+    a, b = ddb.read(b"d", sid, 0, now["t"] + 1), fresh.read(b"d", sid, 0, now["t"] + 1)
+    ok = ok and len(a[0]) == 2 and (a[0] == b[0]).all() and (a[1] == b[1]).all()
+ok = ok and DatabaseScrubber(fresh, pm).run(now["t"] + 2 * hour)[b"d"].corrupt_found == 0
+ok = ok and idx_persist.list_segments(pm.root, b"d") == [t0 - t0 % (4 * hour)]
+ok = ok and wire.decode(wire.encode({b"k": [1, 2.5]})) == {b"k": [1, 2.5]}
+ok = ok and faultfs.DiskFaultPlan(seed=1, write_eio=1.0).schedule("write", "a", 1) == ["eio"]
+lock.release()
+
 torch.cuda.is_available = lambda: False
+ddb.device = torch.device("cuda")
 for make in (lambda: Engine(DictStorage(series)),
              lambda: Database(ShardSet(4)), lambda: Aggregator(),
-             lambda: MetricList(60 * 10**9)):
+             lambda: MetricList(60 * 10**9), lambda: BlockRetriever(pm),
+             lambda: BootstrapProcess().run(ddb)):
     try:
         make()
         ok = False
@@ -170,9 +218,14 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     decision, the storage path (write, tick, read and a LocalStorage
     query), a block merge and a guarded decode under an injected fault,
     the aggregator tier (the agg_rollup_10x population's two flushes, a
-    managed Aggregator.flush) and a rules engine round, in a fresh
-    process; the Engine, the Database, the Aggregator and a MetricList
-    also refuse to start without a card unless asked for the CPU."""
+    managed Aggregator.flush), a rules engine round, and the durable path
+    (a lockfile, a commit-logged write, flush with index segments,
+    eviction, a snapshot, a bootstrap from filesystem and commit log, a
+    scrub, the wire codec and a disk-fault plan), in a fresh process; the
+    Engine, the Database, the Aggregator, a MetricList and a
+    BlockRetriever also refuse to start without a card unless asked for
+    the CPU, and a bootstrap of a database placed on the card refuses to
+    run without one."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -182,7 +235,21 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     assert out["mods"] == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from m3_tpu_torch.persist.fs import FilesetReader, PersistManager
+    from m3_tpu_torch.storage.block import encode_block as enc
+    from m3_tpu_torch.storage.bootstrap import BootstrapProcess
+    from m3_tpu_torch.storage.database import Database as Db
+    from m3_tpu_torch.storage.retriever import BlockRetriever
+    from m3_tpu_torch.storage.series import SeriesRegistry
+    from m3_tpu_torch.utils.bloom import BloomFilter
+
+    reg = SeriesRegistry()
+    reg.get_or_create(b"a")
+    pm = PersistManager(str(tmp_path))
+    path = pm.write_block(b"ns", 0, enc(
+        0, np.zeros(1, np.int32), np.arange(4, dtype=np.int64)[None, :],
+        np.ones((1, 4)), np.full(1, 4, np.int32), device="cpu"), reg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from m3_tpu_torch.ops import tsz
     from m3_tpu_torch.parallel import ingest
@@ -199,6 +266,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from m3_tpu_torch.utils.hbm import HBMBudget
     from m3_tpu_torch.aggregator import Aggregator, MetricList, MetricLists
     from m3_tpu_torch.parallel import agg_flush
+
+    placed = Db(ShardSet(4), device="cpu")
+    placed.device = torch.device("cuda")  # a database placed on the card
 
     ts, vals, npts = ingest.make_example_raw(4, 12, np.random.default_rng(0))
     calls = [
@@ -235,6 +305,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: MetricLists(),
         lambda: agg_flush.exact_quantile_values(
             [np.ones(3)], np.array([3]), (0.5,)),
+        lambda: BloomFilter(64, 3).add_batch([b"a"]),
+        lambda: FilesetReader(path).to_block(),
+        lambda: FilesetReader(path).verify_rows(),
+        lambda: BlockRetriever(pm),
+        lambda: BootstrapProcess().run(placed),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
