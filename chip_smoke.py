@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ingest, read, query and aggregation paths
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
+durability and cluster paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -210,12 +210,45 @@ Phases (each synchronises the device and fails the run on any error):
               quarantines exactly that fileset, and a restart leaves its
               range to the commit log, whose replay restores it (sealed
               by a tick, flushed again clean) bit for bit
+  13. cluster  the client and the replicated cluster on the card, in a
+              temporary directory the phase removes; each step's seconds
+              and launches printed beside the card's name and power limit.
+              (a) BASELINE config #9 (bench.py:1310-1437) at its size:
+              100,000 series x 4 points in 8 shards (index and commit log
+              off, seed 61) written (K3) and ticked (K1) on a donor served
+              by a NodeServer; fresh joiners on the card run the peers
+              bootstrap through a Session (a warm pass, 2 timed, one
+              traced: series/s, the metadata / plan / tile fetch / apply
+              split); every migrated block equals the donor's, the batched
+              apply equals apply_peer_tiles_ref on shard 0's tiles, and a
+              mixed-unit tile (half of shard 0's rows re-sealed at
+              millisecond ticks) goes through _apply_mixed_unit_rows (K2,
+              then K1) and reads back equal to the donor's. (b) a 3-node,
+              replication-factor-3 ClusterHarness of 16 shards on the card
+              behind fault proxies, a Session at MAJORITY writes and reads:
+              bench_promql's counters (10,000 series, seed 11) cut to 12
+              points at 10 s, written with tags through Session.write_batch
+              (writes/s), ticked (K1), 2 more points into the buffers; a
+              fetch_tagged of every series (the sealed tiles through K2,
+              plus the buffer sidecar) equals each node's Database.read;
+              six rate / *_over_time / sum queries over
+              SessionStorage(session) equal the same queries over node0's
+              LocalStorage (K4 inside the plan graphs); four of them again
+              from an empty plan cache (a CUDA-graph capture each) while a
+              second thread writes through the session; node2 taken away
+              through its FaultProxy: MAJORITY writes acknowledge,
+              MAJORITY reads equal node0's reads, a read at ALL raises
+              ConsistencyError. (c) one value overwritten on node0's sealed
+              block (K1): a ShardRepairer heals it (the peers' tiles
+              through K2, the rebuilt block through K1): the three nodes'
+              rows of that block equal, the series reads back bit for bit
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush, graphite, plan, aggregator, durability), each count set to 0 just before its
-path is driven and read just after. A compiled plan's kernels are recorded once
-in its CUDA graph and launched by each replay: the window kernel's count
-adds its warm-up launch and, per replay, the launches its graph holds.
+flush, graphite, plan, aggregator, durability, cluster), each count set to
+0 just before its path is driven and read just after. A compiled plan's
+kernels are recorded once in its CUDA graph and launched by each replay:
+the window kernel's count adds its warm-up launch and, per replay, the
+launches its graph holds.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -684,6 +717,10 @@ def main() -> int:
     # -- 12. the storage node's durability ----------------------------------
     for name, n in _durability_phase().items():
         by_path[name]["durability"] = n
+
+    # -- 13. the client and the replicated cluster --------------------------
+    for name, n in _cluster_phase().items():
+        by_path[name]["cluster"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -3221,13 +3258,14 @@ class _Steps:
         import torch
 
         from m3_tpu_torch.ops import codec_kernels as ck
+        from m3_tpu_torch.ops import window_kernels as wk
 
-        before = ck.launch_counts()
+        before = dict(ck.launch_counts(), window=wk.window_stat.launches)
         t0 = time.perf_counter()
         yield
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        after = ck.launch_counts()
+        after = dict(ck.launch_counts(), window=wk.window_stat.launches)
         moved = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         _card(f"{self.label} {name}: {secs!r} s host clock, launches {moved}")
 
@@ -3656,6 +3694,522 @@ def _scrub_fallthrough(state: dict) -> None:
     phase(f"durability (c): the flipped fileset detected on every serve "
           f"path, quarantined alone by the scrubber; after a restart the "
           f"commit log restored its {len(shard0)} series bit for bit")
+
+
+# Phase 13: the replicated cluster. (a) BASELINE config #9 at its size
+# (bench.py:1310-1437): 100,000 series x 4 points in 8 shards on a donor,
+# streamed into a joiner through a Session, seed 61; (b) a 3-node,
+# replication-factor-3 cluster of 16 shards (tests/test_rpc_client.py:
+# 145-149), written through a Session with bench_promql's counter corpus
+# (seed 11) cut to RF3_POINTS points; (c) repair of one diverged replica.
+PEER_SERIES, PEER_POINTS, PEER_SHARDS, PEER_SEED, PEER_ITERS = (
+    100_000, 4, 8, 61, 2)
+RF3_SERIES, RF3_POINTS, RF3_SHARDS, RF3_SEED = 10_000, 12, 16, 11
+CLUSTER_QUERIES = ("rate(bench_metric[5m])", "increase(bench_metric[5m])",
+                   "sum_over_time(bench_metric[5m])",
+                   "avg_over_time(bench_metric[5m])",
+                   "max_over_time(bench_metric[5m])",
+                   "sum(rate(bench_metric[5m]))")
+# The queries run again from an empty plan cache (a capture each) while a
+# second thread writes through the session.
+CONCURRENT_QUERIES = CLUSTER_QUERIES[2:]
+# The peer-streaming steps that phase 13 (a) times (cProfile; on Python
+# 3.12 it records every thread, the donor's handler threads included, so
+# the split is indicative only).
+PEER_STEPS = {
+    "metadata (fetch_block_metadata_tiles_from_peers)": (
+        "client/session.py", "fetch_block_metadata_tiles_from_peers"),
+    "plan (plan_block_majority)": ("client/session.py",
+                                   "plan_block_majority"),
+    "tile fetch (fetch_block_tiles)": ("client/session.py",
+                                       "fetch_block_tiles"),
+    "apply (apply_peer_tiles)": ("storage/bootstrap.py", "apply_peer_tiles"),
+}
+
+
+def _cluster_phase() -> dict:
+    """Phase 13: the client and the replicated cluster on the card, in a
+    temporary directory the phase removes. (a) config #9: peer streaming
+    of 100,000 series from a donor NodeServer into a joiner; (b) a 3-node
+    RF=3 cluster: quorum writes through the Session, fetch_tagged against
+    every node's reads, PromQL over SessionStorage against LocalStorage,
+    queries while a second thread writes, one node taken away; (c) a
+    diverged replica healed by the repairer. Returns the kernels'
+    launches over the phase (the counts set to 0 just before it)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        ck.reset_launch_counts()
+        wk.window_stat.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _peer_migration()
+        cluster = _rf3_cluster(os.path.join(root, "rf3"))
+        try:
+            _repair_divergence(cluster)
+        finally:
+            cluster["session"].close()
+            cluster["harness"].close()
+        torch.cuda.synchronize()
+        launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+        del cluster
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _card(f"cluster: phase 13 in {time.perf_counter() - t0!r} s, launches "
+          f"{launches}")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash", "window")),
+          f"phase 13 did not launch every kernel: {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _time_unit(unit):
+    """encode_block seals at `unit` instead of the coarsest lossless one
+    (a replica that sealed the same points at another tick scale)."""
+    from m3_tpu_torch.storage import block as block_mod
+
+    real = block_mod.choose_time_unit
+    block_mod.choose_time_unit = lambda ts: unit
+    try:
+        yield
+    finally:
+        block_mod.choose_time_unit = real
+
+
+def _same_block(a, b) -> bool:
+    return (np.array_equal(a.series_indices, b.series_indices)
+            and np.asarray(a.words).tobytes() == np.asarray(b.words).tobytes()
+            and np.array_equal(a.nbits, b.nbits)
+            and np.array_equal(a.npoints, b.npoints)
+            and a.window == b.window and a.time_unit == b.time_unit)
+
+
+def _peer_migration() -> None:
+    """Phase 13 (a): config #9 at its size (bench.py:1310-1437): a donor
+    Database on the card (8 shards, index and commit log off) written
+    (K3) and ticked (K1), served by a NodeServer; fresh joiner Databases
+    on the card run BootstrapProcess(chain=("peers",)) through a Session
+    (tiles decoded nowhere: installed as streamed): a warm pass, then
+    PEER_ITERS timed passes and a traced one. Every migrated block equals
+    the donor's; apply_peer_tiles equals apply_peer_tiles_ref on shard
+    0's tiles; a mixed-unit tile (half of shard 0's rows re-sealed at
+    millisecond ticks) goes through _apply_mixed_unit_rows (K2, then K1)
+    and reads back equal to the donor."""
+    from m3_tpu_torch.client import Session, SessionOptions
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.cluster.topology import StaticTopology
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.rpc import NodeServer, NodeService
+    from m3_tpu_torch.storage import bootstrap as bs
+    from m3_tpu_torch.storage.block import encode_block
+    from m3_tpu_torch.storage.buffer import to_dense
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.shard import Shard
+    from m3_tpu_torch.utils import xtime
+
+    step = _Steps("cluster (a)")
+    ns = b"bench"
+    n = PEER_SERIES
+    t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
+    now = {"t": t0}
+    opts = NamespaceOptions(index_enabled=False, snapshot_enabled=False,
+                            writes_to_commitlog=False)
+    ids = [b"mig-%07d" % i for i in range(n)]
+    rng = np.random.default_rng(PEER_SEED)
+    step_ns = BLOCK_NS // (PEER_POINTS + 1)
+    with step(f"donor: write {n} x {PEER_POINTS} (K3)"):
+        donor = Database(ShardSet(PEER_SHARDS), clock=lambda: now["t"])
+        donor.ensure_namespace(ns, opts)
+        for s in range(PEER_POINTS):
+            now["t"] = t0 + s * step_ns
+            donor.write_batch(ns, ids, np.full(n, now["t"], np.int64),
+                              rng.standard_normal(n))
+    with step("donor: tick (K1 seals)"):
+        now["t"] = t0 + BLOCK_NS + 11 * MINUTE_NS
+        sealed = donor.tick()["sealed"]
+    check(sealed >= PEER_SHARDS, f"donor tick sealed {sealed}")
+    donor.mark_bootstrapped()
+    srv = NodeServer(NodeService(donor)).start()
+    placement = initial_placement([Instance(id="donor", endpoint=srv.endpoint)],
+                                  PEER_SHARDS, 1)
+    session = Session(StaticTopology(placement), SessionOptions(timeout_s=120))
+    try:
+        def migrate():
+            db = Database(ShardSet(PEER_SHARDS), clock=lambda: now["t"])
+            db.ensure_namespace(ns, opts)
+            res = bs.BootstrapProcess(chain=("peers",), ctx=bs.BootstrapContext(
+                session=session, placement=placement, host_id="joiner")
+            ).run(db, now_ns=now["t"])
+            return db, res
+
+        with step("joiner: peers bootstrap, warm pass"):
+            db, res = migrate()
+        check(res[ns].unfulfilled.is_empty(),
+              f"unfulfilled after the peers bootstrap: {res[ns].unfulfilled}")
+        got = sum(s.num_series() for s in db.namespace(ns).shards.values())
+        check(got == n, f"migrated {got}/{n} series")
+        dts = []
+        for _ in range(PEER_ITERS):
+            t1 = time.perf_counter()
+            migrate()
+            dts.append(time.perf_counter() - t1)
+        with _instrumented(PEER_STEPS) as traced:
+            migrate()
+        _card(f"cluster (a) peer migration (config #9): {n} series x "
+              f"{PEER_POINTS} points, {PEER_SHARDS} shards; runs {dts} s, "
+              f"{n / min(dts)!r} series/s (best of {PEER_ITERS}); traced "
+              f"run {traced['wall']!r} s: {_split_text(traced)}")
+        blocks = 0
+        for sid, shard in donor.namespace(ns).shards.items():
+            mine = db.namespace(ns).shards[sid]
+            check(mine.registry.all_ids() == shard.registry.all_ids(),
+                  f"shard {sid}: the joiner's registry differs")
+            check(sorted(mine.blocks) == sorted(shard.blocks),
+                  f"shard {sid}: block starts differ")
+            for bstart, blk in shard.blocks.items():
+                check(_same_block(mine.blocks[bstart], blk),
+                      f"shard {sid} block {bstart}: migrated block differs")
+                blocks += 1
+        with step("oracle: apply_peer_tiles against apply_peer_tiles_ref "
+                  "on shard 0's tiles"):
+            tiles, tags, failed = session.fetch_block_tiles_from_peers(
+                ns, 0, t0, now["t"], exclude_host="joiner")
+            sopts = opts.shard_options()
+            sh_new, sh_ref = Shard(0, sopts), Shard(0, sopts)
+            bs.apply_peer_tiles(sh_new, tiles, tags)
+            bs.apply_peer_tiles_ref(sh_ref, tiles, tags)
+        check(not failed and sorted(sh_new.blocks) == sorted(sh_ref.blocks)
+              and all(_same_block(b, sh_ref.blocks[k])
+                      for k, b in sh_new.blocks.items()),
+              "apply_peer_tiles differs from apply_peer_tiles_ref")
+        src = donor.namespace(ns).shards[0]
+        (bstart, blk), = src.blocks.items()
+        with step("mixed units: half of shard 0 re-sealed at ms ticks, "
+                  "_apply_mixed_unit_rows (K2, then K1)"):
+            ts, vs, npts = blk.read_all()
+            half = blk.num_series // 2
+            mask = np.arange(ts.shape[1]) < npts[half:, None]
+            series, td, vd, cnt = to_dense(
+                np.repeat(np.arange(blk.num_series - half, dtype=np.int32),
+                          npts[half:]), ts[half:][mask], vs[half:][mask])
+            with _time_unit(xtime.Unit.MILLISECOND):
+                ms_blk = encode_block(bstart, series, td, vd, cnt)
+            all_ids = src.registry.all_ids()
+            row_ids = [all_ids[i] for i in blk.series_indices.tolist()]
+            mixed = {bstart: [
+                {"ids": row_ids[:half], "words": blk.words[:half],
+                 "nbits": blk.nbits[:half], "npoints": blk.npoints[:half],
+                 "window": blk.window, "time_unit": int(blk.time_unit)},
+                {"ids": row_ids[half:], "words": ms_blk.words,
+                 "nbits": ms_blk.nbits, "npoints": ms_blk.npoints,
+                 "window": ms_blk.window,
+                 "time_unit": int(ms_blk.time_unit)}]}
+            check(ms_blk.time_unit != blk.time_unit,
+                  "the re-sealed half kept the donor's tick scale")
+            sh_mixed = Shard(0, sopts)
+            bs.apply_peer_tiles(sh_mixed, mixed, {})
+            m_ts, m_vs, m_np = sh_mixed.blocks[bstart].read_all()
+        got_rows = {sid: (m_ts[r, :m_np[r]].tobytes(), m_vs[r, :m_np[r]]
+                          .tobytes()) for r, sid in enumerate(
+                              sh_mixed.registry.all_ids()[i] for i in
+                              sh_mixed.blocks[bstart].series_indices.tolist())}
+        want_rows = {sid: (ts[r, :npts[r]].tobytes(), vs[r, :npts[r]]
+                           .tobytes()) for r, sid in enumerate(row_ids)}
+        check(got_rows == want_rows, "the mixed-unit merge's reads differ "
+              "from the donor's")
+        phase(f"cluster (a): {n} series migrated, {blocks} blocks equal to "
+              f"the donor's (series_indices, words, nbits, npoints); "
+              f"apply_peer_tiles == apply_peer_tiles_ref on "
+              f"{len(sh_new.blocks)} blocks of shard 0; a mixed-unit tile "
+              f"of {blk.num_series} rows re-encoded at "
+              f"{sh_mixed.blocks[bstart].time_unit.name} reads equal to the "
+              f"donor's")
+    finally:
+        session.close()
+        srv.close()
+    donor.close()
+
+
+def _barrier(session, ns: bytes, t_ns: int) -> None:
+    """Every write the session has queued has reached every replica:
+    one write at ALL (each host's queue is FIFO, so its acknowledgement
+    follows every earlier batch on that host)."""
+    import dataclasses
+
+    from m3_tpu_torch.cluster.topology import ConsistencyLevel
+
+    opts = session.opts
+    session.opts = dataclasses.replace(
+        opts, write_consistency=ConsistencyLevel.ALL)
+    try:
+        session.write(ns, b"barrier", t_ns, 0.0)
+    finally:
+        session.opts = opts
+
+
+def _rf3_cluster(root: str) -> dict:
+    """Phase 13 (b): a 3-node, replication-factor-3 cluster of RF3_SHARDS
+    shards on the card behind fault proxies, written and read through a
+    Session at MAJORITY (writes and reads). bench_promql's counter corpus
+    (RF3_SERIES series, seed 11) cut to RF3_POINTS points at 10 s is
+    written with tags, one write_batch a step (writes/s), the nodes
+    ticked (K1), 2 more points written into the buffers; a fetch_tagged
+    of every series (sealed tiles through K2, plus the buffer sidecar)
+    equals each node's own Database.read; CLUSTER_QUERIES over
+    SessionStorage(session) equal the same queries over node0's
+    LocalStorage (the query answers' bound; K4 inside the plan graphs);
+    CONCURRENT_QUERIES again from an empty plan cache while a second
+    thread writes through the session; then node2 taken away through its
+    FaultProxy: MAJORITY writes acknowledge, MAJORITY reads equal node0's
+    reads, a read at ALL raises ConsistencyError. Returns the cluster for
+    (c)."""
+    import threading
+
+    import torch
+
+    from m3_tpu_torch.client import ConsistencyError, Session, SessionOptions
+    from m3_tpu_torch.cluster.topology import (ConsistencyLevel,
+                                               ReadConsistencyLevel)
+    from m3_tpu_torch.index import query as iq
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel import compile as pcompile
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.storage import LocalStorage, SessionStorage
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.testing import promql_corpus
+    from m3_tpu_torch.testing.cluster import ClusterHarness
+    from m3_tpu_torch.testing.faultnet import FaultPlan
+    from m3_tpu_torch.utils import hbm
+
+    step = _Steps("cluster (b)")
+    ns = b"default"
+    series, t_full = promql_corpus(RF3_SERIES, RF3_SEED)
+    t = t_full[:RF3_POINTS]
+    sids = list(series)
+    tags = [series[s]["tags"] for s in sids]
+    vals = np.stack([series[s]["v"][:RF3_POINTS] for s in sids], axis=1)
+    h = ClusterHarness(n_nodes=3, replica_factor=3, num_shards=RF3_SHARDS,
+                       start_ns=int(t[0]), data_root=root,
+                       fault_plan=FaultPlan())
+    session = Session(h.topology, SessionOptions(
+        write_consistency=ConsistencyLevel.MAJORITY,
+        read_consistency=ReadConsistencyLevel.MAJORITY, timeout_s=120))
+    cluster = {"harness": h, "session": session, "ns": ns, "t": t,
+               "series": series}
+    n_dp = RF3_SERIES * RF3_POINTS
+    with step(f"write {RF3_SERIES} x {RF3_POINTS} with tags through "
+              f"Session.write_batch (MAJORITY; K3 on each node)"):
+        t1 = time.perf_counter()
+        for k in range(RF3_POINTS):
+            h.clock.now_ns = int(t[k])
+            session.write_batch(ns, sids, np.full(RF3_SERIES, t[k]), vals[k],
+                                tags)
+        w_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _barrier(session, ns, int(t[-1]))
+        b_s = time.perf_counter() - t1
+    _card(f"cluster (b) writes: {n_dp} datapoints ({3 * n_dp} replica "
+          f"writes) acknowledged at MAJORITY in {w_s!r} s: {n_dp / w_s!r} "
+          f"datapoints/s; the ALL barrier after them {b_s!r} s")
+    with step("tick all nodes (K1 seals)"):
+        h.clock.advance(BLOCK_NS + 11 * MINUTE_NS)
+        h.tick_all()
+    now = h.clock.now_ns
+    with step("2 more points into the buffers"):
+        for k in (1, 0):
+            session.write_batch(ns, sids, np.full(RF3_SERIES, now - k * 10**9),
+                                vals[-1] + 10 * (2 - k), tags)
+        _barrier(session, ns, now)
+    budget = hbm.shared_budget()
+    cache = block_cache.get_cache()
+    _card(f"cluster (b) residency: 3 replicas, {cache.resident_bytes()} "
+          f"bytes in the block cache; budget total {budget.total()} of "
+          f"{budget.limit} bytes; torch.cuda.memory_allocated() "
+          f"{torch.cuda.memory_allocated()} bytes")
+    q_all = iq.TermQuery(b"__name__", b"bench_metric")
+    end = now + 1
+    with step("fetch_tagged of every series (tiles through K2)"):
+        got = session.fetch_tagged(ns, q_all, 0, end)
+    check(sorted(got) == sorted(sids), f"fetch_tagged gave {len(got)} series")
+    for host, node in sorted(h.nodes.items()):
+        with step(f"{host}: Database.read of every series"):
+            for sid in sids:
+                rt, rv = node.db.read(ns, sid, 0, end)
+                e = got[sid]
+                check(rt.tobytes() == e["t"].tobytes()
+                      and np.asarray(rv, np.float64).tobytes()
+                      == e["v"].tobytes() and len(rt) == RF3_POINTS + 2,
+                      f"{host} {sid!r}: fetch_tagged differs from the read")
+    start, q_end = int(t[0]), now
+    local = LocalStorage(h.nodes["node0"].db, ns)
+    want = {}
+    for q in CLUSTER_QUERIES:
+        want[q] = Engine(local).execute_range(q, start, q_end, STEP_NS)
+    remote = Engine(SessionStorage(session, ns))
+    before = wk.window_stat.launches
+    with step(f"{len(CLUSTER_QUERIES)} queries over SessionStorage"):
+        for q in CLUSTER_QUERIES:
+            blk = remote.execute_range(q, start, q_end, STEP_NS)
+            route = remote.last_route()["route"]
+            rel, ab = _check_query(q, blk, want[q], "SessionStorage against "
+                                   "node0's LocalStorage")
+            same = (np.asarray(blk.values).tobytes()
+                    == np.asarray(want[q].values).tobytes())
+            _card(f"cluster (b) {q}: route {route}, {blk.values.shape}, max "
+                  f"rel {rel!r}, abs {ab!r}, bit-equal {same}")
+    window = wk.window_stat.launches - before
+    check(window > 0, "the window kernel did not launch for the queries over "
+          "SessionStorage")
+    writes = {"n": 0}
+    stop = threading.Event()
+    errors = []
+
+    side = [b"bench_side{i=%d}" % j for j in range(20)]
+
+    def writer():
+        # 20 side series, one point each every 10 ms or so: a steady
+        # write load through every node's write path (K3) while the
+        # queries capture, not a flood that starves them of the GIL.
+        k = 0
+        try:
+            while not stop.wait(0.01):
+                session.write_batch(ns, side, np.full(20, now + k * 1000),
+                                    np.full(20, float(k)),
+                                    [{b"__name__": b"bench_side"}] * 20)
+                writes["n"] += 20
+                k += 1
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+
+    pcompile.clear()
+    th = threading.Thread(target=writer)
+    with step(f"{len(CONCURRENT_QUERIES)} queries from an empty plan cache "
+              f"(a capture each) while a second thread writes"):
+        th.start()
+        try:
+            for q in CONCURRENT_QUERIES:
+                blk = remote.execute_range(q, start, q_end, STEP_NS)
+                _check_query(q, blk, want[q], "under concurrent writes")
+                check(remote.last_route()["route"] == "compiled",
+                      f"{q}: route {remote.last_route()}")
+        finally:
+            stop.set()
+            th.join()
+    check(not errors and writes["n"] > 0,
+          f"the concurrent writer: {writes['n']} writes, errors {errors}")
+    _card(f"cluster (b) concurrent: {len(CONCURRENT_QUERIES)} captures and "
+          f"queries equal while {writes['n']} datapoints were written")
+    pcompile.clear()
+    h.nodes["node2"].proxy.plan = FaultPlan(refuse=1.0, reset=1.0)
+    with step("node2 away: MAJORITY write of 1,000 points"):
+        part = sids[:1000]
+        session.write_batch(ns, part, np.full(1000, now + 10**9),
+                            np.full(1000, 7.0), tags[:1000])
+    with step("node2 away: MAJORITY fetch_tagged against node0's reads"):
+        got = session.fetch_tagged(ns, q_all, 0, end + 10**9)
+        node0 = h.nodes["node0"].db
+        for sid in sids[::10]:
+            rt, rv = node0.read(ns, sid, 0, end + 10**9)
+            check(rt.tobytes() == got[sid]["t"].tobytes()
+                  and np.asarray(rv, np.float64).tobytes()
+                  == got[sid]["v"].tobytes(),
+                  f"{sid!r}: a read with node2 away differs from node0's")
+    check(all(len(got[s]["t"]) == RF3_POINTS + 3 for s in part),
+          "a MAJORITY write with node2 away is missing")
+    strict = Session(h.topology, SessionOptions(
+        read_consistency=ReadConsistencyLevel.ALL, timeout_s=10))
+    try:
+        try:
+            strict.fetch_tagged(ns, q_all, 0, end)
+            check(False, "a read at ALL with node2 away did not raise")
+        except ConsistencyError as err:
+            _card(f"cluster (b) node2 away: a read at ALL raised "
+                  f"ConsistencyError ({str(err)[:120]})")
+    finally:
+        strict.close()
+    h.nodes["node2"].proxy.plan = FaultPlan()
+    phase(f"cluster (b): {n_dp} datapoints written at MAJORITY; every "
+          f"series' fetch_tagged equal to each node's reads; "
+          f"{len(CLUSTER_QUERIES)} queries over SessionStorage equal to "
+          f"LocalStorage ({window} window launches); concurrent captures "
+          f"and writes; quorum with node2 away")
+    return cluster
+
+
+def _repair_divergence(cluster: dict) -> None:
+    """Phase 13 (c): one value of one series overwritten on node0's sealed
+    block (read_all, change, re-encode through K1, install): node0's
+    replica diverges. A ShardRepairer over a fresh Session heals it (the
+    peers' tiles through K2, the rebuilt block through K1): after the
+    repair the three nodes' rows of that block are equal and the series
+    reads back bit for bit."""
+    from m3_tpu_torch.client import Session, SessionOptions
+    from m3_tpu_torch.storage import block_cache
+    from m3_tpu_torch.storage.block import encode_block
+    from m3_tpu_torch.storage.buffer import to_dense
+    from m3_tpu_torch.storage.repair import ShardRepairer
+
+    step = _Steps("cluster (c)")
+    h, ns, t = cluster["harness"], cluster["ns"], cluster["t"]
+    sid = next(iter(cluster["series"]))
+    node0 = h.nodes["node0"].db
+    shard_id = node0.shard_set.lookup(sid)
+    shard = node0.namespace(ns).shards[shard_id]
+    bstart = (int(t[0]) // BLOCK_NS) * BLOCK_NS
+    with step("diverge node0: overwrite one value, re-encode (K1)"):
+        blk = shard.blocks[bstart]
+        ts, vs, npts = blk.read_all()
+        vs = np.array(vs)
+        vs[blk.row_of(shard.registry.get(sid)), 4] += 1000.0
+        mask = np.arange(ts.shape[1]) < npts[:, None]
+        series_i, td, vd, cnt = to_dense(
+            np.repeat(blk.series_indices, npts), ts[mask], vs[mask])
+        bad = encode_block(bstart, series_i, td, vd, cnt)
+        with shard.write_lock:
+            block_cache.get_cache().invalidate_block(blk)
+            shard.blocks[bstart] = bad
+    session = Session(h.topology, SessionOptions(timeout_s=60))
+    try:
+        with step("ShardRepairer.repair_shard (K2 tiles, K1 rebuild)"):
+            stats = ShardRepairer(session, host_id="node0").repair_shard(
+                node0.namespace(ns), shard_id, bstart, bstart + BLOCK_NS)
+    finally:
+        session.close()
+    check(stats.checksum_mismatches == 1 and stats.blocks_rebuilt == 1
+          and stats.peer_errors == 0 and stats.rows_unfetched == 0,
+          f"repair stats {stats}")
+
+    def rows(db):
+        sh = db.namespace(ns).shards[shard_id]
+        b = sh.blocks[bstart]
+        all_ids = sh.registry.all_ids()
+        return {all_ids[i]: (np.asarray(b.words[r]).tobytes(),
+                             int(b.nbits[r]), int(b.npoints[r]))
+                for r, i in enumerate(b.series_indices.tolist())}
+
+    healed = rows(node0)
+    for host in ("node1", "node2"):
+        check(rows(h.nodes[host].db) == healed,
+              f"after the repair node0's rows differ from {host}'s")
+    end = h.clock.now_ns + 1
+    a = node0.read(ns, sid, 0, end)
+    b = h.nodes["node1"].db.read(ns, sid, 0, end)
+    check(a[0].tobytes() == b[0].tobytes()
+          and np.asarray(a[1], np.float64).tobytes()
+          == np.asarray(b[1], np.float64).tobytes(),
+          "the healed series reads differently from node1's")
+    phase(f"cluster (c): the diverged replica healed ({stats}); all three "
+          f"nodes' rows of shard {shard_id}'s block equal, the series "
+          f"reads back bit for bit")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

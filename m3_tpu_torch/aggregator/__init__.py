@@ -7,14 +7,14 @@ batches every closed window of every shard into one columnar reduce:
 host-exact f64 moments and one device call for the timer quantile
 ordering (list.py emit_batch over parallel/agg_flush.py)."""
 
-from .aggregator import (Aggregator, AggregatorShard, ForwardedWriter,
-                         ForwardRoutingUnsupported)
+from .aggregator import Aggregator, AggregatorShard, ForwardedWriter
 from .election import ElectionManager, ElectionState
 from .elem import Elem, ElemKey
 from .entry import Entry, MetricMap, RateLimiter
 from .flush import FlushManager, FlushTimesManager
 from .handler import (AggregatedMetric, BlackholeHandler, CaptureHandler,
-                      Handler)
+                      Handler, ProducerHandler, decode_aggregated,
+                      decode_aggregated_batch)
 from .list import (FlushBatch, MetricList, MetricLists, batched_reduce,
                    emit_batch, reduce_and_emit, reduce_and_emit_ref)
 
@@ -22,7 +22,8 @@ __all__ = [
     "AggregatedMetric", "Aggregator", "AggregatorShard", "BlackholeHandler",
     "CaptureHandler", "Elem", "ElemKey", "ElectionManager", "ElectionState",
     "Entry", "FlushBatch", "FlushManager", "FlushTimesManager",
-    "ForwardRoutingUnsupported", "ForwardedWriter", "Handler", "MetricList",
-    "MetricLists", "MetricMap", "RateLimiter", "batched_reduce",
+    "ForwardedWriter", "Handler", "MetricList",
+    "MetricLists", "MetricMap", "ProducerHandler", "RateLimiter",
+    "batched_reduce", "decode_aggregated", "decode_aggregated_batch",
     "emit_batch", "reduce_and_emit", "reduce_and_emit_ref",
 ]

@@ -11,10 +11,10 @@ aggregation ring (forwarded_writer.go).
 
 Port of m3_tpu/aggregator/aggregator.py: host code, with the flush's
 quantile ordering on the aggregator's device (None: the card, raising
-without one; "cpu": the plain torch ops). The forwarded writer loops back
-locally only: cross-instance routing needs the placement of the client
-slice, and set_forward_routing raises ForwardRoutingUnsupported until
-then."""
+without one; "cpu": the plain torch ops). With forward routing set, the
+forwarded writer delivers each rollup partial to the owners of its shard
+in the aggregator placement (cluster/placement.py), over the wire or
+locally; without it everything loops back locally."""
 
 from __future__ import annotations
 
@@ -32,11 +32,6 @@ from .entry import MetricMap
 from .flush import FlushManager, FlushTimesManager
 from .handler import Handler
 from .list import MetricLists
-
-
-class ForwardRoutingUnsupported(NotImplementedError):
-    """Cross-instance forwarding needs cluster/placement.py, which the
-    port does not have yet (ROADMAP A13.2): forwards loop back locally."""
 
 
 class AggregatorShard:
@@ -64,26 +59,112 @@ class AggregatorShard:
 
 class ForwardedWriter:
     """Routes rollup-pipeline outputs to the next aggregation stage
-    (forwarded_writer.go). The port's writer is the local loop-back of
-    the reference's unrouted form (the embedded single-instance
-    downsampler): every forwarded partial lands in the local aggregator,
-    which owns all shards."""
+    (forwarded_writer.go): the forwarded ID hashes to a shard, and the
+    partial aggregate is delivered to every instance owning that shard in
+    the aggregator placement — over the wire when the owner is another
+    instance, directly when it is this one. Without routing configuration
+    (the embedded single-instance downsampler) everything loops back into
+    the local aggregator, which owns all shards."""
 
     def __init__(self, target: "Aggregator"):
         self._target = target
+        self._placement = None      # Callable[[], Placement] | None
+        self._transports = {}       # instance_id -> send_forwarded fn
+        self._local_id = None
+        self.dropped = 0
+
+    def set_routing(self, placement_getter, transports, local_instance_id):
+        """transports: instance_id -> either a transport OBJECT exposing
+        send_forwarded / send_forwarded_batch (TCPTransport — enables the
+        one-frame-per-destination batched forwarding) or a bare
+        fn(metric_type, id, t, value, meta) (legacy per-item form)."""
+        self._placement = placement_getter
+        self._transports = dict(transports)
+        self._local_id = local_instance_id
+
+    @staticmethod
+    def _send_fn(transport):
+        send = getattr(transport, "send_forwarded", None)
+        return send if send is not None else transport
 
     def __call__(self, new_id: bytes, t_nanos: int, value: float,
                  meta: ForwardMetadata, source_id: bytes):
-        self._target.add_forwarded(
-            MetricType.GAUGE, new_id, t_nanos, value, meta)
+        if self._placement is None:
+            self._target.add_forwarded(
+                MetricType.GAUGE, new_id, t_nanos, value, meta)
+            return
+        from ..cluster.placement import ShardState
+
+        shard = self._target.shard_for(new_id)
+        delivered = False
+        for inst in self._placement().replicas_for(
+                shard, states=(ShardState.INITIALIZING, ShardState.AVAILABLE)):
+            if inst.id == self._local_id:
+                delivered |= self._target.add_forwarded(
+                    MetricType.GAUGE, new_id, t_nanos, value, meta)
+                continue
+            tr = self._transports.get(inst.id)
+            if tr is not None and self._send_fn(tr)(
+                    MetricType.GAUGE, new_id, t_nanos, value, meta):
+                delivered = True
+        if not delivered:
+            self.dropped += 1
 
     def forward_batch(self, items):
-        """Ship one flush round's rollup forwards (the sink list.py
-        emit_batch collects instead of per-datapoint forward_fn calls);
-        items are (new_id, t_nanos, value, meta, source_id)."""
-        add = self._target.add_forwarded
-        for new_id, t_nanos, value, meta, _src in items:
-            add(MetricType.GAUGE, new_id, t_nanos, value, meta)
+        """Ship one flush round's rollup forwards batched (the sink
+        list.py emit_batch collects instead of per-datapoint forward_fn
+        calls). Local deliveries apply directly; remote deliveries
+        coalesce into ONE columnar `fbatch` frame per (destination
+        instance, forward-meta group) per flush round, through the
+        transport's send_forwarded_batch. Items are (new_id, t_nanos,
+        value, meta, source_id)."""
+        if self._placement is None:
+            add = self._target.add_forwarded
+            for new_id, t_nanos, value, meta, _src in items:
+                add(MetricType.GAUGE, new_id, t_nanos, value, meta)
+            return
+        from ..cluster.placement import ShardState
+
+        states = (ShardState.INITIALIZING, ShardState.AVAILABLE)
+        placement = self._placement()
+        delivered = [False] * len(items)
+        pending: Dict[str, List[int]] = {}
+        for i, (new_id, t_nanos, value, meta, _src) in enumerate(items):
+            shard = self._target.shard_for(new_id)
+            for inst in placement.replicas_for(shard, states=states):
+                if inst.id == self._local_id:
+                    if self._target.add_forwarded(
+                            MetricType.GAUGE, new_id, t_nanos, value, meta):
+                        delivered[i] = True
+                    continue
+                if inst.id in self._transports:
+                    pending.setdefault(inst.id, []).append(i)
+        for inst_id, idxs in pending.items():
+            tr = self._transports[inst_id]
+            batch_send = getattr(tr, "send_forwarded_batch", None)
+            if batch_send is None:
+                send = self._send_fn(tr)
+                for i in idxs:
+                    new_id, t_nanos, value, meta, _src = items[i]
+                    if send(MetricType.GAUGE, new_id, t_nanos, value, meta):
+                        delivered[i] = True
+                continue
+            # one frame per meta group (metas differ only across
+            # pipelines/policies, so a flush round is typically one
+            # frame per destination)
+            groups: Dict[tuple, List[int]] = {}
+            for i in idxs:
+                meta = items[i][3]
+                gk = (meta.aggregation_id, meta.storage_policy,
+                      meta.pipeline, meta.num_forwarded_times)
+                groups.setdefault(gk, []).append(i)
+            for gidx in groups.values():
+                if batch_send(MetricType.GAUGE, [items[i] for i in gidx]):
+                    for i in gidx:
+                        delivered[i] = True
+        undelivered = delivered.count(False)
+        if undelivered:
+            self.dropped += undelivered
 
 
 class Aggregator:
@@ -135,11 +216,12 @@ class Aggregator:
 
     def set_forward_routing(self, placement_getter, transports,
                             local_instance_id):
-        """Cross-instance forwarded pipelines (forwarded_writer.go) need
-        the aggregator placement, which the port does not have yet."""
-        raise ForwardRoutingUnsupported(
-            "forward routing needs cluster/placement.py (ROADMAP A13.2); "
-            "the port's forwarded writer loops back locally")
+        """Enable cross-instance forwarded pipelines: rollup outputs are
+        routed to the instances owning the forwarded ID's shard
+        (forwarded_writer.go; proven end-to-end by the reference's
+        multi_server_forwarding_pipeline_test.go)."""
+        self._forward.set_routing(placement_getter, transports,
+                                  local_instance_id)
 
     def owned_shards(self) -> List[int]:
         return sorted(self._owned)

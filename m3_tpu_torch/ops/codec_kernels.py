@@ -24,7 +24,7 @@ holding the bit pattern.
 
 from __future__ import annotations
 
-import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -40,18 +40,33 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "m3_tpu_torch"
 SOURCES = ("binding.cpp", "pack.cu", "decode.cu", "hash.cu", "window.cu")
 
 
-@functools.cache
-def build():
-    """Compile (if needed) and load the kernels' extension module."""
-    from torch.utils.cpp_extension import load
+_BUILD_LOCK = threading.Lock()
+_MODULE = None
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return load(
-        name="m3_tpu_torch_kernels",
-        sources=[str(CSRC / src) for src in SOURCES],
-        extra_cflags=["-O3"],
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-        build_directory=str(BUILD_DIR))
+
+def build():
+    """Compile (if needed) and load the kernels' extension module, once.
+
+    The node server's handler threads launch the kernels concurrently, so
+    their first use may come from several threads at once: the lock makes
+    every one of them wait for the single cpp_extension.load (two loads
+    racing into one build directory would corrupt it)."""
+    global _MODULE
+    if _MODULE is not None:
+        return _MODULE
+    with _BUILD_LOCK:
+        if _MODULE is None:
+            from torch.utils.cpp_extension import load
+
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _MODULE = load(
+                name="m3_tpu_torch_kernels",
+                sources=[str(CSRC / src) for src in SOURCES],
+                extra_cflags=["-O3"],
+                extra_cuda_cflags=["-O3",
+                                   "-gencode=arch=compute_90a,code=sm_90a"],
+                build_directory=str(BUILD_DIR))
+    return _MODULE
 
 
 def _check(name: str, tensors: dict, dtype, ndim: int, device) -> None:

@@ -1,15 +1,20 @@
-"""Query storage over the port's storage node (port of LocalStorage from
-m3_tpu/query/storage.py; reference: src/query/storage/types.go Storage and
-storage/m3/storage.go, the dbnode adapter).
+"""Query storage interface + implementations (port of
+m3_tpu/query/storage.py; reference: src/query/storage/types.go Storage,
+storage/m3/storage.go the dbnode adapter, storage/fanout/storage.go the
+multi-store fanout).
 
 fetch_raw(matchers, start_ns, end_ns) -> {series_id: {tags, t, v}} raw
 datapoints; the executor grids them per query. Tag index queries compile
-from label matchers via model.matchers_to_index_query. The session and
-fan-out storages of the reference are not ported yet."""
+from label matchers via model.matchers_to_index_query. LocalStorage reads
+an in-process Database, SessionStorage the replicated cluster through a
+client Session (whose fetched tiles decode on the session's device), and
+FanoutStorage merges several stores by series id."""
 
 from __future__ import annotations
 
 from typing import Dict, Sequence
+
+import numpy as np
 
 from .model import Matcher, matchers_to_index_query
 
@@ -61,3 +66,91 @@ class LocalStorage:
         return self._db.aggregate_tags(
             self._namespace, matchers_to_index_query(matchers), start_ns,
             end_ns, name_only=name_only, filter_names=filter_names)
+
+
+class SessionStorage:
+    """Adapter over the replicating client session (storage/m3/storage.go
+    Fetch -> session.FetchTagged, the coordinator's production path)."""
+
+    def __init__(self, session, namespace: bytes):
+        self._session = session
+        self._namespace = namespace
+
+    def fetch_raw(self, matchers: Sequence[Matcher], start_ns: int,
+                  end_ns: int) -> Dict[bytes, dict]:
+        q = matchers_to_index_query(matchers)
+        return self._session.fetch_tagged(self._namespace, q, start_ns, end_ns)
+
+    def write(self, series_id: bytes, tags: Dict[bytes, bytes], t_ns: int,
+              value: float):
+        self._session.write_tagged(self._namespace, series_id, tags, t_ns, value)
+
+    def complete_tags(self, matchers: Sequence[Matcher], start_ns: int,
+                      end_ns: int, name_only: bool = False,
+                      filter_names: Sequence[bytes] = ()) -> Dict[bytes, set]:
+        q = matchers_to_index_query(matchers)
+        return self._session.aggregate(
+            self._namespace, q, start_ns, end_ns, name_only=name_only,
+            field_filter=filter_names)
+
+
+class FanoutStorage:
+    """Fan out fetches across stores and merge by series id
+    (storage/fanout/storage.go; replica-level merge already happened in the
+    client, so cross-store merge is simple union preferring more points)."""
+
+    def __init__(self, stores: Sequence):
+        self._stores = list(stores)
+
+    def fetch_raw(self, matchers: Sequence[Matcher], start_ns: int,
+                  end_ns: int) -> Dict[bytes, dict]:
+        merged: Dict[bytes, dict] = {}
+        for store in self._stores:
+            for sid, entry in store.fetch_raw(matchers, start_ns, end_ns).items():
+                cur = merged.get(sid)
+                if cur is None:
+                    merged[sid] = dict(entry)
+                else:
+                    t = np.concatenate([np.asarray(cur["t"]), np.asarray(entry["t"])])
+                    v = np.concatenate([np.asarray(cur["v"]), np.asarray(entry["v"])])
+                    order = np.argsort(t, kind="stable")
+                    t, v = t[order], v[order]
+                    keep = np.ones(t.size, dtype=bool)
+                    keep[1:] = t[1:] != t[:-1]
+                    cur["t"], cur["v"] = t[keep], v[keep]
+                    if not cur["tags"] and entry["tags"]:
+                        cur["tags"] = entry["tags"]
+        return merged
+
+    def write(self, series_id: bytes, tags, t_ns: int, value: float):
+        for store in self._stores:
+            store.write(series_id, tags, t_ns, value)
+
+    def complete_tags(self, matchers: Sequence[Matcher], start_ns: int,
+                      end_ns: int, name_only: bool = False,
+                      filter_names: Sequence[bytes] = ()) -> Dict[bytes, set]:
+        merged: Dict[bytes, set] = {}
+        for store in self._stores:
+            part = _store_complete_tags(store, matchers, start_ns, end_ns,
+                                        name_only, filter_names)
+            for name, vals in part.items():
+                merged.setdefault(name, set()).update(vals)
+        return merged
+
+
+def _store_complete_tags(store, matchers, start_ns, end_ns, name_only,
+                         filter_names) -> Dict[bytes, set]:
+    """CompleteTags for any store: use the store's index-backed fast path
+    when present, else derive from fetched series tags (the reference's
+    remote storages similarly degrade to a series fetch)."""
+    fn = getattr(store, "complete_tags", None)
+    if fn is not None:
+        return fn(matchers, start_ns, end_ns, name_only=name_only,
+                  filter_names=filter_names)
+    from ..storage.database import fold_tags
+
+    ff = set(filter_names) if filter_names else None
+    out: Dict[bytes, set] = {}
+    for entry in store.fetch_raw(matchers, start_ns, end_ns).values():
+        fold_tags(out, dict(entry["tags"]), ff, name_only)
+    return out

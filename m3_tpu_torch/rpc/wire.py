@@ -1,13 +1,20 @@
-"""The wire value codec (host copy of the value half of
-m3_tpu/rpc/wire.py): a compact self-describing binary encoding of None,
-bool, int (i64), float (f64), bytes, str, list, dict and ndarray (raw
-buffers, so packed codewords and columns travel without per-element
-marshalling). The index segment files (index/persist.py) carry their
-payload in it. The socket framing and the query wire forms belong to the
-node RPC layer, which the port does not have yet."""
+"""Binary wire format + framing for the node RPC data plane (host copy
+of m3_tpu/rpc/wire.py; reference: src/dbnode/network/server/tchannelthrift).
+
+A compact self-describing binary codec over length-prefixed TCP frames;
+the bulk payloads are numpy arrays (packed u32 TSZ codewords, i64
+timestamp / f64 value columns) serialized as raw buffers, so a fetch
+response feeds the batched decode kernel without per-element
+marshalling. Only numpy crosses the wire, never a tensor: a port node and
+a reference node exchange the same bytes. The index segment files
+(index/persist.py) carry their payload in the same value codec.
+
+Frame: <u32 length><body>, body = encode(value). Values: None, bool,
+int (i64), float (f64), bytes, str, list, dict, ndarray."""
 
 from __future__ import annotations
 
+import socket
 import struct
 from typing import Any
 
@@ -28,6 +35,9 @@ _U8 = struct.Struct("<B")
 _U32 = struct.Struct("<I")
 _I64S = struct.Struct("<q")
 _F64S = struct.Struct("<d")
+
+MAX_FRAME = 1 << 31  # 2 GiB hard cap against corrupt length prefixes
+
 
 class WireTruncated(ConnectionError):
     """The peer died MID-FRAME: EOF inside the length prefix or body, so
@@ -174,3 +184,131 @@ def decode(buf: bytes) -> Any:
     if pos != len(buf):
         raise ValueError(f"wire: trailing bytes ({len(buf) - pos})")
     return v
+
+
+# ------------------------------------------------------------------- framing
+
+
+def write_frame(sock: socket.socket, value: Any) -> None:
+    body = encode(value)
+    sock.sendall(_U32.pack(len(body)) + body)
+
+
+def _read_exact(sock: socket.socket, n: int, mid_frame: bool = False) -> bytes:
+    """Read exactly n bytes. EOF before the first byte is a clean close
+    (plain ConnectionError) unless `mid_frame` — a frame header already
+    committed the peer to a body — and EOF after a partial read is always
+    WireTruncated: the peer died inside a frame."""
+    want = n
+    parts = []
+    while n:
+        chunk = sock.recv(min(n, 1 << 20))
+        if not chunk:
+            if mid_frame or n != want:
+                raise WireTruncated(
+                    f"wire: peer closed mid-frame ({want - n}/{want} bytes)")
+            raise ConnectionError("wire: peer closed")
+        parts.append(chunk)
+        n -= len(chunk)
+    return b"".join(parts)
+
+
+def read_frame(sock: socket.socket) -> Any:
+    (n,) = _U32.unpack(_read_exact(sock, 4))
+    if n > MAX_FRAME:
+        raise ValueError(f"wire: frame too large ({n})")
+    return decode(_read_exact(sock, n, mid_frame=True))
+
+
+def read_dict_frame(sock: socket.socket) -> dict:
+    """read_frame + top-level shape check: every server protocol in this
+    codebase frames dict messages, and a well-formed frame with the wrong
+    top type must surface as the SAME ValueError every handler loop
+    already treats as drop-the-connection (not an AttributeError
+    traceback at the first .get)."""
+    v = read_frame(sock)
+    if not isinstance(v, dict):
+        raise ValueError(f"wire: expected dict frame, got {type(v).__name__}")
+    return v
+
+
+# ------------------------------------------------------ deadline propagation
+
+# Optional request-frame key carrying the caller's REMAINING time budget
+# in nanoseconds (a relative budget, not an absolute timestamp: monotonic
+# clocks don't compare across hosts and wall clocks skew). Every server
+# loop re-anchors it against its own clock on receipt.
+DEADLINE_KEY = "d"
+
+
+def deadline_from_frame(req: dict):
+    """Deadline from a request frame's budget field, or None. A malformed
+    budget (wrong type, negative) is treated as absent: deadline metadata
+    must never be the thing that kills an otherwise-valid request."""
+    from ..utils.retry import Deadline
+
+    budget = req.get(DEADLINE_KEY)
+    if not isinstance(budget, int) or isinstance(budget, bool) or budget < 0:
+        return None
+    return Deadline.from_wire(budget)
+
+
+# ------------------------------------------------------ trace propagation
+
+# Optional request-frame key carrying the caller's span context (trace id
+# + parent span id) — only attached for SAMPLED traces, so its presence
+# is the sampling decision and the server never rolls its own. Rides the
+# frame beside the deadline "d" and priority "pri" hints. The matching
+# RESPONSE key "sp" carries the server's finished span tree back for the
+# client to graft, making one cross-process tree per request.
+TRACE_KEY = "tr"
+SPAN_KEY = "sp"
+
+
+def trace_from_frame(req: dict):
+    """SpanContext from a request frame, or None. Malformed trace
+    metadata is treated as absent (same contract as the deadline field)."""
+    from ..utils.tracing import SpanContext
+
+    return SpanContext.from_wire(req.get(TRACE_KEY))
+
+
+# -------------------------------------------------- index query serialization
+
+
+def query_to_wire(q) -> dict:
+    """index.Query <-> plain dict (thrift rpc.thrift Query equivalent)."""
+    from ..index import query as iq
+
+    if isinstance(q, iq.AllQuery):
+        return {"t": "all"}
+    if isinstance(q, iq.TermQuery):
+        return {"t": "term", "f": q.field, "v": q.value}
+    if isinstance(q, iq.RegexpQuery):
+        return {"t": "regexp", "f": q.field, "v": q.pattern}
+    if isinstance(q, iq.ConjunctionQuery):
+        return {"t": "conj", "qs": [query_to_wire(s) for s in q.queries]}
+    if isinstance(q, iq.DisjunctionQuery):
+        return {"t": "disj", "qs": [query_to_wire(s) for s in q.queries]}
+    if isinstance(q, iq.NegationQuery):
+        return {"t": "neg", "q": query_to_wire(q.query)}
+    raise TypeError(f"unknown query {type(q)!r}")
+
+
+def query_from_wire(d: dict):
+    from ..index import query as iq
+
+    t = d["t"]
+    if t == "all":
+        return iq.AllQuery()
+    if t == "term":
+        return iq.TermQuery(d["f"], d["v"])
+    if t == "regexp":
+        return iq.RegexpQuery(d["f"], d["v"])
+    if t == "conj":
+        return iq.ConjunctionQuery(tuple(query_from_wire(s) for s in d["qs"]))
+    if t == "disj":
+        return iq.DisjunctionQuery(tuple(query_from_wire(s) for s in d["qs"]))
+    if t == "neg":
+        return iq.NegationQuery(query_from_wire(d["q"]))
+    raise ValueError(f"unknown query type {t!r}")

@@ -15,14 +15,12 @@ cmd/services/m3dbnode/config/bootstrap.go:115-160).
 
 The device work runs on each namespace's device (the database's): the
 filesystem bootstrapper's blooms (verify_rows) and block reads, the
-snapshot tiles' reads, and the WAL replay's shard routing (the hash
-kernel, one launch a chunk, one copy of the shard ids to the host). A
-fault of the hash kernel on the card raises typed; nothing falls back to
-a host hash. What needs a cluster is not ported: a peers bootstrapper
-given a session, or an uninitialized-topology bootstrapper given a
-placement, raises PeersBootstrapUnsupported (the client session and the
-placement are later work); without them both behave as the reference's
-do on a single node."""
+snapshot tiles' reads, the WAL replay's shard routing (the hash kernel,
+one launch a chunk, one copy of the shard ids to the host), and the peers
+bootstrapper's mixed-unit re-encodes (the decode, then the pack kernel).
+Peer tiles arrive as host numpy words and install without a decode. A
+fault of a kernel on the card raises typed; nothing falls back to a host
+codec."""
 
 from __future__ import annotations
 
@@ -36,10 +34,16 @@ from ..device import resolve
 from ..persist import commitlog as cl
 from ..persist.diskio import CorruptionError
 from ..persist.fs import FilesetReader, PersistManager, quarantine_fileset
-from ..utils import xtime
+from ..utils import tracing, xtime
 from ..utils.hashing import hash_batch
 from ..utils.instrument import ROOT
-from .timerange import ShardTimeRanges, overlaps
+from ..utils.retry import Deadline
+from .block import SealedBlock
+from .timerange import ShardTimeRanges, normalize, overlaps, subtract
+
+# Peer-bootstrap observability: typed peer failures and partial coverage
+# count here instead of disappearing into except/continue.
+_PEER_BOOT_METRICS = ROOT.sub_scope("bootstrap.peers")
 
 # Commitlog-bootstrap observability: a skipped WAL replay (no shard
 # lookup on a partial shard set) means acked data was LEFT ON DISK —
@@ -52,24 +56,18 @@ _FS_BOOT_METRICS = ROOT.sub_scope("bootstrap.fs")
 _LOG = logging.getLogger("m3_tpu_torch.storage.bootstrap")
 
 
-class PeersBootstrapUnsupported(NotImplementedError):
-    """Peer streaming and placement-aware bootstrap need the client
-    session and the cluster placement, which the port does not have
-    yet."""
-
-
 @dataclasses.dataclass
 class BootstrapContext:
-    """The sources a chain reads. `session` and `placement` are the
-    cluster's (the reference's peer-streaming host id and deadline go with
-    them when they are ported): given either, the bootstrappers that need
-    them raise PeersBootstrapUnsupported."""
-
     persist: Optional[PersistManager] = None
     commitlog_dir: Optional[str] = None
     session: Optional[object] = None       # client.Session (admin surface)
+    host_id: Optional[str] = None
     placement: Optional[object] = None     # cluster.placement.Placement
     shard_lookup: Optional[object] = None  # Callable[[bytes], int] (shard set)
+    # Per-shard peer-streaming budget: rides every metadata/tile RPC as a
+    # Deadline, so one faultnet-delayed peer bounds that shard's fetch
+    # instead of stalling the whole bootstrap. None = unbounded.
+    peer_deadline_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -470,21 +468,252 @@ def _murmur_shard(sid: bytes, num_shards: int) -> int:
     return murmur3_32(sid) % num_shards
 
 
+def _iter_tile_rows(tiles: Dict[int, List[dict]]):
+    """Canonical row order over a tile map: block starts ascending, tiles
+    in arrival order, rows in tile order. BOTH apply paths register
+    series in this order, so their registries — and therefore the
+    sorted-by-index block layouts — are bit-identical by construction."""
+    for bs in sorted(tiles):
+        for tile in tiles[bs]:
+            yield bs, tile
+
+
+def _install_encoded(shard, bs: int, built: SealedBlock):
+    """Install a freshly re-encoded block (mixed-unit merge): replace any
+    resident block, adopt the encode's device buffers into the block
+    cache, reclaim the HBM budget OUTSIDE the shard lock."""
+    from . import block_cache
+    from .shard import FlushState
+
+    cache = block_cache.get_cache()
+    with shard.write_lock:
+        old = shard.blocks.get(bs)
+        if old is not None:
+            # Replacing a resident block: its generation's cached planes
+            # die with it.
+            cache.invalidate_block(old)
+        shard.blocks[bs] = built
+        # Adopt (or drop) the encode's device buffers: a long-lived
+        # block must never pin them outside the budget's sight.
+        cache.retain_encoded(built, getattr(shard, "namespace_name", None),
+                             shard.shard_id)
+        shard.flush_states.setdefault(bs, FlushState.SUCCESS)
+    # Per-block reclaim OUTSIDE the shard lock: a many-block peers
+    # bootstrap must not overshoot the HBM budget for the whole recovery
+    # window (Shard.tick makes the same call after its seals).
+    cache.budget.reclaim()
+
+
+def _apply_mixed_unit_rows(shard, bs: int, rows: List[Tuple[int, dict]]):
+    """Replicas sealed this block with different tick scales
+    (choose_time_unit diverged): decode each row at its own unit
+    (pow2-bucketed batched decode, the decode kernel) and re-encode the
+    tile uniformly (the pack kernel), both on the shard's device."""
+    from ..client.decode import decode_segment_groups
+    from .block import encode_block
+    from .buffer import to_dense
+
+    decoded = decode_segment_groups([b for _i, b in rows],
+                                    device=shard.device)
+    sidx = np.concatenate([
+        np.full(len(t), idx, np.int32)
+        for (idx, _b), (t, _v) in zip(rows, decoded)])
+    ts = np.concatenate([t for t, _v in decoded])
+    vs = np.concatenate([v for _t, v in decoded])
+    order = np.lexsort((ts, sidx))
+    series, td, vd, counts = to_dense(sidx[order], ts[order], vs[order])
+    _install_encoded(shard, bs, encode_block(bs, series, td, vd, counts,
+                                             device=shard.device))
+
+
+def apply_peer_tiles(shard, tiles: Dict[int, List[dict]],
+                     tags_by_sid: Dict[bytes, dict]) -> int:
+    """Batched peer-block apply: register every streamed series in ONE
+    registry batch (the insert-queue drain's registry call), then install
+    each block start from its columnar tiles — per-tile slice assignment
+    into the [rows, max_words] matrix, no per-row fills, no per-series
+    get_or_create. Mixed-time-unit blocks (replicas sealed at different
+    tick scales) fall back to the batched decode + re-encode path.
+    Returns the number of blocks installed."""
+    ids = list(dict.fromkeys(
+        sid for _bs, tile in _iter_tile_rows(tiles) for sid in tile["ids"]))
+    if not ids:
+        return 0
+    tags = [tags_by_sid.get(sid) or None for sid in ids]
+    with shard.write_lock:
+        idxs, _created = shard.registry.get_or_create_batch_tagged(ids, tags)
+    rank = dict(zip(ids, (int(i) for i in idxs)))
+    installed = 0
+    for bs in sorted(tiles):
+        tlist = tiles[bs]
+        units = {int(t["time_unit"]) for t in tlist}
+        if len(units) != 1:
+            rows: List[Tuple[int, dict]] = []
+            for tile in tlist:
+                words = np.asarray(tile["words"])
+                nbits = np.asarray(tile["nbits"])
+                npoints = np.asarray(tile["npoints"])
+                rows.extend(
+                    (rank[sid], {"bs": bs, "words": words[i],
+                                 "nbits": int(nbits[i]),
+                                 "npoints": int(npoints[i]),
+                                 "window": int(tile["window"]),
+                                 "time_unit": int(tile["time_unit"])})
+                    for i, sid in enumerate(tile["ids"]))
+            _apply_mixed_unit_rows(shard, bs, rows)
+            installed += 1
+            continue
+        n = sum(len(t["ids"]) for t in tlist)
+        window = max(int(t["window"]) for t in tlist)
+        mw = max(np.asarray(t["words"]).shape[-1] for t in tlist)
+        words = np.zeros((n, mw), np.uint32)
+        nbits = np.empty(n, np.int32)
+        npoints = np.empty(n, np.int32)
+        remap = np.empty(n, np.int32)
+        r = 0
+        for tile in tlist:
+            w = np.asarray(tile["words"])
+            k = w.shape[0]
+            words[r:r + k, : w.shape[-1]] = w
+            nbits[r:r + k] = np.asarray(tile["nbits"])
+            npoints[r:r + k] = np.asarray(tile["npoints"])
+            remap[r:r + k] = np.fromiter(
+                (rank[sid] for sid in tile["ids"]), np.int32, count=k)
+            r += k
+        blk = SealedBlock(
+            block_start=bs, window=window,
+            series_indices=np.arange(n, dtype=np.int32),
+            words=words, nbits=nbits, npoints=npoints,
+            time_unit=xtime.Unit(units.pop()), device=shard.device)
+        shard.load_block(blk, remap)
+        installed += 1
+    return installed
+
+
+def apply_peer_tiles_ref(shard, tiles: Dict[int, List[dict]],
+                         tags_by_sid: Dict[bytes, dict]) -> int:
+    """The pre-batching per-row apply path, retained as the property-test
+    ORACLE (the tests assert apply_peer_tiles bit-identical to this):
+    per-series registry get_or_create, per-row np fills into the block
+    tile. Never used on the serving path."""
+    installed = 0
+    per_block: Dict[int, List[Tuple[int, dict]]] = {}
+    for bs, tile in _iter_tile_rows(tiles):
+        words = np.asarray(tile["words"])
+        nbits = np.asarray(tile["nbits"])
+        npoints = np.asarray(tile["npoints"])
+        for i, sid in enumerate(tile["ids"]):
+            idx, _ = shard.registry.get_or_create(
+                sid, tags_by_sid.get(sid) or None)
+            per_block.setdefault(bs, []).append(
+                (idx, {"bs": bs, "words": words[i], "nbits": int(nbits[i]),
+                       "npoints": int(npoints[i]),
+                       "window": int(tile["window"]),
+                       "time_unit": int(tile["time_unit"])}))
+    for bs, rows in per_block.items():
+        units = {int(b["time_unit"]) for _i, b in rows}
+        if len(units) == 1:
+            window = max(int(b["window"]) for _i, b in rows)
+            mw = max(np.asarray(b["words"]).shape[-1] for _i, b in rows)
+            words = np.zeros((len(rows), mw), np.uint32)
+            nbits = np.zeros(len(rows), np.int32)
+            npoints = np.zeros(len(rows), np.int32)
+            remap = np.zeros(len(rows), np.int32)
+            for i, (idx, b) in enumerate(rows):
+                w = np.asarray(b["words"])
+                words[i, : w.shape[-1]] = w
+                nbits[i] = b["nbits"]
+                npoints[i] = b["npoints"]
+                remap[i] = idx
+            blk = SealedBlock(
+                block_start=bs, window=window,
+                series_indices=np.arange(len(rows), dtype=np.int32),
+                words=words, nbits=nbits, npoints=npoints,
+                time_unit=xtime.Unit(units.pop()), device=shard.device,
+            )
+            shard.load_block(blk, remap)
+        else:
+            _apply_mixed_unit_rows(shard, bs, rows)
+        installed += 1
+    return installed
+
+
 class PeersBootstrapper(Bootstrapper):
-    """bootstrapper/peers: stream replica blocks via the admin session.
-    Without a session (a single node) it claims nothing, as the
-    reference's does, and the chain falls through; with one it raises
-    PeersBootstrapUnsupported, since the port has no client session."""
+    """bootstrapper/peers: stream replica blocks via the admin session
+    (columnar tile streaming), choosing the best peer per block by
+    checksum agreement, with xresil retry/breaker underneath and
+    mid-stream peer death re-planned onto the next checksum holder.
+
+    Partial coverage is SURFACED, not swallowed: blocks whose every
+    holder failed subtract their windows from the claim (the chain's
+    unfulfilled remainder names them), typed peer failures count in the
+    `bootstrap.peers` instrument scope, and untyped errors propagate."""
 
     name = "peers"
 
     def bootstrap(self, ns, shard_ranges, ctx):
+        # Typed transport classification shared with the session layer
+        # (imported lazily: storage must not import client at module
+        # scope — client.session already imports storage types).
+        from ..client.session import PEER_SKIP_ERRORS
+
         claimed = ShardTimeRanges()
         if ctx.session is None:
             return claimed
-        raise PeersBootstrapUnsupported(
-            "peers bootstrap streams blocks through client.Session, which "
-            "m3_tpu_torch does not have yet (ROADMAP A13.2)")
+        bsz = ns.opts.block_size_ns
+        for shard_id in shard_ranges.shards():
+            shard = ns.shards.get(shard_id)
+            if shard is None:
+                continue
+            ranges = shard_ranges.ranges(shard_id)
+            start = min(s for s, _e in ranges)
+            end = max(e for _s, e in ranges)
+            deadline = (Deadline.after(ctx.peer_deadline_s)
+                        if ctx.peer_deadline_s is not None else None)
+            errors: Dict[str, str] = {}
+            meta_errors: Dict[str, str] = {}
+            # Span per peer-streamed shard: a churn-era bootstrap under a
+            # sampled span yields one tree whose children are the peer
+            # metadata/tile RPCs (grafted server spans included), so
+            # shard-migration time is attributable per hop.
+            with tracing.child_span("bootstrap.peer_shard",
+                                    shard=shard_id) as bsp:
+                try:
+                    tiles, tags_by_sid, failed = \
+                        ctx.session.fetch_block_tiles_from_peers(
+                            ns.name, shard_id, start, end,
+                            exclude_host=ctx.host_id, deadline=deadline,
+                            errors=errors, meta_errors=meta_errors)
+                except PEER_SKIP_ERRORS:
+                    # Whole-shard typed transport failure (topology gone,
+                    # budget spent before any peer answered): claim nothing
+                    # for THIS shard, keep bootstrapping the rest.
+                    _PEER_BOOT_METRICS.counter("on_error").inc()
+                    continue
+                if errors or meta_errors:
+                    _PEER_BOOT_METRICS.counter("on_error").inc(
+                        len(errors) + len(meta_errors))
+                bsp.set_tag("blocks", sum(len(t) for t in tiles.values()))
+                # Whatever DID arrive is real data — always install it.
+                apply_peer_tiles(shard, tiles, tags_by_sid)
+            if failed:
+                _PEER_BOOT_METRICS.counter("blocks_failed").inc(len(failed))
+            if meta_errors:
+                # A peer lost during the METADATA phase may have held
+                # sealed blocks nobody else has (e.g. it was the only
+                # surviving acker): the plan itself is incomplete and
+                # the missing blocks cannot even be enumerated — claim
+                # NOTHING for this shard so the hole surfaces as
+                # unfulfilled instead of being silently sealed over.
+                _PEER_BOOT_METRICS.counter("shards_uncovered").inc()
+                continue
+            # Claim what was actually covered: the requested ranges minus
+            # the block windows whose every checksum holder failed.
+            fail_windows = normalize(
+                [(bs, bs + bsz) for _sid, bs in failed])
+            for s, e in subtract(ranges, fail_windows):
+                claimed.add(shard_id, s, e)
+        return claimed
 
 
 class UninitializedTopologyBootstrapper(Bootstrapper):
@@ -495,6 +724,8 @@ class UninitializedTopologyBootstrapper(Bootstrapper):
     name = "uninitialized_topology"
 
     def bootstrap(self, ns, shard_ranges, ctx):
+        from ..cluster.placement import ShardState
+
         claimed = ShardTimeRanges()
         if ctx.placement is None:
             # No cluster: single-node fresh start claims everything.
@@ -502,10 +733,17 @@ class UninitializedTopologyBootstrapper(Bootstrapper):
                 for s, e in shard_ranges.ranges(shard_id):
                     claimed.add(shard_id, s, e)
             return claimed
-        raise PeersBootstrapUnsupported(
-            "uninitialized_topology with a placement reads shard states "
-            "from cluster/placement.py, which m3_tpu_torch does not have "
-            "yet (ROADMAP A13.2)")
+        for shard_id in shard_ranges.shards():
+            replicas = ctx.placement.replicas_for(
+                shard_id, states=(ShardState.INITIALIZING, ShardState.AVAILABLE))
+            all_new = all(
+                inst.shards[shard_id].state == ShardState.INITIALIZING
+                for inst in replicas
+            ) if replicas else True
+            if all_new:
+                for s, e in shard_ranges.ranges(shard_id):
+                    claimed.add(shard_id, s, e)
+        return claimed
 
 
 DEFAULT_CHAIN = ("filesystem", "commitlog", "peers", "uninitialized_topology")

@@ -1,30 +1,31 @@
-"""Background fileset scrubbing, quarantine-only (port of
-m3_tpu/storage/scrub.py): walk cold on-disk filesets verifying row
-checksums (+ bloom agreement) at a bounded read rate and quarantine
-anything rotten (reference: the reference platform pairs its repairer
-with fileset digest verification at open; scrubbing closes the gap for
-bit-rot that lands AFTER a fileset was written and verified — media
-decay the serve path only notices when a query happens to touch the bad
-row).
+"""Background fileset scrubbing (port of m3_tpu/storage/scrub.py): walk
+cold on-disk filesets verifying row checksums (+ bloom agreement) at a
+bounded read rate, quarantine anything rotten, and route it into the
+repair-from-peers machinery (reference: the reference platform pairs its
+repairer with fileset digest verification at open; scrubbing closes the
+gap for bit-rot that lands AFTER a fileset was written and verified —
+media decay the serve path only notices when a query happens to touch the
+bad row).
 
 `DatabaseScrubber` rides the `DatabaseRepairer` scheduling shape
-(seeded jitter, failure backoff, start/stop loop). Each sweep, per
-(namespace, shard):
+(seeded jitter, failure backoff, start/stop loop) so operators reason
+about one background-sweep idiom. Each sweep, per (namespace, shard):
 
-  1. Previously-quarantined blocks are re-attempted: a resident sealed
-     block is authoritative (serve-time verification drops corrupt
-     in-memory copies), so when one exists its flush state is cleared —
-     the next flush sweep rewrites the fileset — and the quarantined
-     copy is removed (un-quarantine).
+  1. Previously-quarantined blocks are re-attempted: repair re-fetches
+     divergent/missing rows from replica peers (`ShardRepairer`),
+     reinstalls a clean block with its flush state cleared — the next
+     flush sweep rewrites the fileset — and the quarantined copy is
+     removed (un-quarantine). A resident sealed block is authoritative
+     (serve-time verification drops corrupt in-memory copies), so when
+     one exists the rewrite happens even without peer coverage.
   2. Cold filesets (outside the mutable head, inside retention) are
      opened and `verify_rows()`-checked — digest chain, per-row adlers,
      bloom agreement (rebuilt through the hash kernel on the database's
-     device) — throttled to `max_bytes_per_s`. Corruption quarantines
-     the fileset (JSON sidecar naming the failing rows), invalidates the
-     retriever's cached handles, and goes straight to step 1.
+     device) — throttled to `max_bytes_per_s` so a sweep never competes
+     with serving I/O. Corruption quarantines the fileset
+     (JSON sidecar naming the failing rows), invalidates the retriever's
+     cached handles, and goes straight to step 1's repair path.
 
-Repair from replica peers needs the client session, which the port does
-not have yet: a scrubber given a `repairer` raises RepairUnsupported.
 Counters export under `storage.scrub`; corruption events also land in
 the shared `storage.corruption` scope (persist/fs quarantine counters).
 """
@@ -43,11 +44,6 @@ from ..utils.instrument import ROOT
 from ..utils.retry import RetryOptions, Retrier
 
 _SCRUB_METRICS = ROOT.sub_scope("storage.scrub")
-
-
-class RepairUnsupported(NotImplementedError):
-    """Repair from replica peers needs the client session and the
-    cluster placement, which the port does not have yet."""
 
 
 @dataclasses.dataclass
@@ -79,23 +75,18 @@ class ScrubOptions:
 
 
 class DatabaseScrubber:
-    """Cold-data integrity sweeps. `run()` does one
+    """Cold-data integrity sweeps with repair routing. `run()` does one
     sweep; `start()` runs sweeps on a jittered interval with failure
     backoff until `stop()` — per-namespace stats export as counters in
-    the `storage.scrub` scope either way. `repairer` must be None
-    (quarantine-only: corruption is detected and isolated, and the
-    resident sealed block is the only repair source); a ShardRepairer
-    raises RepairUnsupported."""
+    the `storage.scrub` scope either way. `repairer` is a
+    ShardRepairer (None = quarantine-only: corruption is detected and
+    isolated but peer re-fetch is unavailable)."""
 
     def __init__(self, db, persist, repairer=None,
                  opts: ScrubOptions = ScrubOptions()):
-        if repairer is not None:
-            raise RepairUnsupported(
-                "the scrubber's repair from peers needs client.Session, "
-                "which m3_tpu_torch does not have yet (ROADMAP A13.2); "
-                "pass repairer=None for the quarantine-only scrubber")
         self.db = db
         self.persist = persist
+        self.repairer = repairer
         self.opts = opts
         self._rng = (random.Random(opts.seed) if opts.seed is not None
                      else random.Random())
@@ -195,14 +186,25 @@ class DatabaseScrubber:
 
     def _repair(self, ns, shard_id: int, bs: int, bsz: int,
                 st: ScrubStats) -> bool:
-        """True when a verified-good copy of the block is resident again:
-        the already-resident sealed block (authoritative: serve-time
-        verification evicts corrupt in-memory copies) re-scheduled for
-        flush. Its flush state is cleared, so the next flush sweep
-        rewrites the fileset and the caller may un-quarantine."""
+        """True when a verified-good copy of the block is resident again
+        — rebuilt from replica peers, or the already-resident sealed
+        block (authoritative: serve-time verification evicts corrupt
+        in-memory copies) re-scheduled for flush. Either way the flush
+        state is cleared, so the next flush sweep rewrites the fileset
+        and the caller may un-quarantine."""
         shard = ns.shards.get(shard_id)
         if shard is None:
             return False
+        if self.repairer is not None:
+            st.repair_attempts += 1
+            try:
+                rs = self.repairer.repair_shard(ns, shard_id, bs, bs + bsz)
+            except Exception:  # noqa: BLE001 — peer errors retry next sweep
+                _SCRUB_METRICS.counter("repair_error").inc()
+                return False
+            st.blocks_repaired += rs.blocks_rebuilt
+            if rs.blocks_rebuilt:
+                return True
         blk = shard.blocks.get(bs)
         if blk is not None:
             try:

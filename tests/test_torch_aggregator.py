@@ -16,7 +16,8 @@ for bit, with NaN equal to NaN (`_eq` of tests/test_agg_mesh.py), on:
   entries.
 Then the tier's own semantics: forward batching in the local loop-back,
 one flush-times transaction a round, MEDIAN/P50 tuple-index keying, the
-leader/follower flush and the typed refusal of forward routing."""
+leader/follower flush, forward routing over the placement, and the
+producer handler's payloads against the reference's."""
 
 import numpy as np
 import pytest
@@ -29,8 +30,7 @@ from m3_tpu.metrics.metric import MetricType as JMetricType
 from m3_tpu_torch import testing as T
 from m3_tpu_torch.aggregator import elem as elem_mod
 from m3_tpu_torch.aggregator import list as list_mod
-from m3_tpu_torch.aggregator.aggregator import (Aggregator,
-                                                ForwardRoutingUnsupported)
+from m3_tpu_torch.aggregator.aggregator import Aggregator
 from m3_tpu_torch.aggregator.election import ElectionManager, ElectionState
 from m3_tpu_torch.aggregator.flush import (FlushManager, FlushTimesManager,
                                            plan_jobs)
@@ -286,8 +286,134 @@ def test_forward_batching_in_loopback_form():
     agg.flush(BASE + 4 * 60 * S)
     rolled = cap.by_id(b"roll.x.sum")
     assert len(rolled) == 1 and rolled[0].value == float(sum(range(12)))
-    with pytest.raises(ForwardRoutingUnsupported, match="A13.2"):
-        agg.set_forward_routing(lambda: None, {}, "me")
+    # Routed form (forwarded_writer.go): two instances own the 4 shards
+    # (RF 1). Each rollup partial goes to its shard's owner: applied
+    # locally on "me", one columnar batch a meta group to "other"'s
+    # transport; the owners are those of the reference's placement (the
+    # same JSON) and murmur3 hash.
+    from m3_tpu.cluster import placement as jpl
+    from m3_tpu.utils.hashing import murmur3_32 as jmurmur3_32
+    from m3_tpu_torch.cluster import placement as pl
+
+    placement = pl.initial_placement(
+        [pl.Instance("me", "me:1"), pl.Instance("other", "other:1")], 4, 1)
+    jplacement = jpl.Placement.from_json(placement.to_json())
+    sent = []
+
+    class Transport:
+        def send_forwarded_batch(self, metric_type, items):
+            sent.append((metric_type, [(it[0], it[1], it[2]) for it in items]))
+            return True
+
+    routed = Aggregator(num_shards=4, clock=lambda: BASE, device=CPU,
+                        flush_handler=CaptureHandler())
+    routed.set_forward_routing(lambda: placement, {"other": Transport()},
+                               "me")
+    rids = [b"roll.%d" % k for k in range(6)]
+    for i in range(12):
+        rpipe = Pipeline((Op.roll(rids[i % 6], (b"host",),
+                                  magg.AggID.compress([magg.AggType.SUM])),))
+        rmeta = StagedMetadata(0, False, Metadata((PipelineMetadata(
+            magg.AggID.compress([magg.AggType.LAST]), (POL,), rpipe),)))
+        routed.add_untimed_batch([MetricUnion.gauge(b"src.%d" % i,
+                                                    float(i))], (rmeta,))
+    assert routed.flush(BASE + 2 * 60 * S) == 12
+    owner = {rid: jplacement.replicas_for(jmurmur3_32(rid) % 4)[0].id
+             for rid in rids}
+    assert set(owner.values()) == {"me", "other"}
+    remote = [it for mt, items in sent for it in items]
+    assert all(mt == MetricType.GAUGE for mt, _ in sent) and len(sent) == 1
+    assert sorted(it[0] for it in remote) == sorted(
+        rid for i, rid in enumerate(rids * 2) if owner[rid] == "other")
+    assert sorted((it[0], it[2]) for it in remote) == sorted(
+        (rids[i % 6], float(i)) for i in range(12)
+        if owner[rids[i % 6]] == "other")
+    local = sum(2 for rid in rids if owner[rid] == "me")
+    assert routed.forwarded_received == local and routed._forward.dropped == 0
+    for rid in rids:
+        entries = routed._shards[routed.shard_for(rid)].map._entries \
+            if routed.shard_for(rid) in routed._shards else {}
+        assert (rid in entries) == (owner[rid] == "me")
+    routed.set_forward_routing(lambda: placement, {}, "me")
+    for i in range(12):
+        routed.add_untimed_batch([MetricUnion.gauge(b"src.%d" % i, 1.0)], (
+            StagedMetadata(0, False, Metadata((PipelineMetadata(
+                magg.AggID.compress([magg.AggType.LAST]), (POL,),
+                Pipeline((Op.roll(rids[i % 6], (b"host",), magg.AggID.compress(
+                    [magg.AggType.SUM])),))),))),))
+    routed.flush(BASE + 4 * 60 * S)
+    assert routed._forward.dropped == sum(
+        2 for rid in rids if owner[rid] == "other")
+
+
+def test_producer_handler_payloads_equal_the_reference():
+    """ProducerHandler publishes the reference's bytes (one payload a
+    datapoint from handle, one columnar payload a topic shard from
+    handle_columnar), which both packages' decode_aggregated(_batch)
+    read back; a producer past its watermark counts drops."""
+    from m3_tpu.aggregator import handler as jhandler
+    from m3_tpu.metrics.policy import StoragePolicy as JStoragePolicy
+    from m3_tpu.utils.limits import Backpressure as JBackpressure
+    from m3_tpu_torch.aggregator import handler
+    from m3_tpu_torch.utils.limits import Backpressure
+
+    class Producer:
+        def __init__(self, full_error=None):
+            self.out, self.full_error = [], full_error
+
+        def publish(self, shard, payload):
+            if self.full_error is not None:
+                raise self.full_error("past the watermark")
+            self.out.append((shard, payload))
+
+    rng = np.random.default_rng(3)
+    pols = ("1m:40h", "10s:2d")
+    rows = [(b"agg.%d" % i, int(BASE + i * S), float(rng.standard_normal()),
+             pols[i % 2]) for i in range(40)]
+    groups = [([r[0] for r in rows if r[3] == sp],
+               np.array([r[1] for r in rows if r[3] == sp], np.int64),
+               np.array([r[2] for r in rows if r[3] == sp]), sp)
+              for sp in pols]
+    got, want = [], []
+    for mod, pol_cls, out in ((handler, StoragePolicy, got),
+                              (jhandler, JStoragePolicy, want)):
+        prod = Producer()
+        h = mod.ProducerHandler(prod, num_shards=8)
+        for mid, t, v, sp in rows[:5]:
+            h.handle(mod.AggregatedMetric(mid, t, v, pol_cls.parse(sp)))
+        h.handle_columnar([(ids, ts, vs, pol_cls.parse(sp))
+                           for ids, ts, vs, sp in groups])
+        assert h.publishes == len(prod.out)
+        out.extend(prod.out)
+    assert got == want and len(got) > 5
+    for shard, payload in got:
+        one = [(m.id, m.time_nanos, m.value, str(m.storage_policy))
+               for m in handler.decode_aggregated_batch(payload)]
+        assert one == [(m.id, m.time_nanos, m.value, str(m.storage_policy))
+                       for m in jhandler.decode_aggregated_batch(payload)]
+    first = handler.decode_aggregated(got[0][1])
+    jfirst = jhandler.decode_aggregated(got[0][1])
+    assert (first.id, first.time_nanos, first.value,
+            str(first.storage_policy)) == (jfirst.id, jfirst.time_nanos,
+                                           jfirst.value,
+                                           str(jfirst.storage_policy))
+    assert (first.id, first.time_nanos, first.value) == rows[0][:3]
+    decoded = sorted((m.id, m.time_nanos, m.value, str(m.storage_policy))
+                     for _s, p in got[5:]
+                     for m in handler.decode_aggregated_batch(p))
+    assert decoded == sorted((mid, t, v, str(StoragePolicy.parse(sp)))
+                             for mid, t, v, sp in rows)
+    full = handler.ProducerHandler(Producer(Backpressure), num_shards=8)
+    full.handle_columnar([(ids, ts, vs, StoragePolicy.parse(sp))
+                          for ids, ts, vs, sp in groups])
+    full.handle(handler.AggregatedMetric(b"x", 0, 1.0, POL))
+    jfull = jhandler.ProducerHandler(Producer(JBackpressure), num_shards=8)
+    jfull.handle_columnar([(ids, ts, vs, JStoragePolicy.parse(sp))
+                           for ids, ts, vs, sp in groups])
+    jfull.handle(jhandler.AggregatedMetric(b"x", 0, 1.0,
+                                           JStoragePolicy.parse("1m:40h")))
+    assert full.dropped_backpressure == jfull.dropped_backpressure == 41
+    assert full.publishes == jfull.publishes == 0
 
 
 def test_aggregator_flush_commits_flush_times_once():

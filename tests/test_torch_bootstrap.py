@@ -519,6 +519,22 @@ def test_corrupt_fileset_quarantined_and_left_to_the_commitlog(tmp_path):
 
 
 def test_peers_and_placement_need_the_cluster(tmp_path):
+    """Without a session the peers bootstrapper claims nothing and, without
+    a placement, the uninitialized-topology one claims everything (a single
+    node). With them, as in the reference: a joiner streams a donor's
+    sealed blocks through a Session (registries and words equal to the
+    reference joiner's), and a brand-new placement (every replica still
+    INITIALIZING) is claimed while one with an AVAILABLE replica is not."""
+    from m3_tpu.client import Session as JSession
+    from m3_tpu.cluster import placement as jpl
+    from m3_tpu.cluster.topology import StaticTopology as JStaticTopology
+    from m3_tpu.rpc import NodeServer as JNodeServer
+    from m3_tpu.rpc import NodeService as JNodeService
+    from m3_tpu_torch.client import Session
+    from m3_tpu_torch.cluster import placement as pl
+    from m3_tpu_torch.cluster.topology import StaticTopology
+    from m3_tpu_torch.rpc import NodeServer, NodeService
+
     db = PORT.Database(ShardSet(2), clock=lambda: T0)
     db.create_namespace(NS, NamespaceOptions(index_enabled=False))
     ns = db.namespace(NS)
@@ -527,13 +543,67 @@ def test_peers_and_placement_need_the_cluster(tmp_path):
         ns, req, bs.BootstrapContext()).is_empty()
     assert bs.UninitializedTopologyBootstrapper().bootstrap(
         ns, req, bs.BootstrapContext()) == req
-    with pytest.raises(bs.PeersBootstrapUnsupported, match="A13.2"):
-        bs.PeersBootstrapper().bootstrap(
-            ns, req, bs.BootstrapContext(session=object()))
-    with pytest.raises(bs.PeersBootstrapUnsupported, match="A13.2"):
-        bs.UninitializedTopologyBootstrapper().bootstrap(
-            ns, req, bs.BootstrapContext(placement=object()))
     assert bs.DEFAULT_CHAIN == jbs.DEFAULT_CHAIN
     assert sorted(bs._REGISTRY) == sorted(jbs._REGISTRY)
     res = bs.BootstrapProcess().run(db, now_ns=T0)
     assert res[NS].claimed["uninitialized_topology"] == req
+
+    sides = {
+        "port": (lambda d: NodeServer(NodeService(d, device="cpu")), pl,
+                 lambda p: Session(StaticTopology(p), device="cpu")),
+        "ref": (lambda d: JNodeServer(JNodeService(d)), jpl,
+                lambda p: JSession(JStaticTopology(p)))}
+    joined = []
+    for pkg in PKGS:
+        serve, plm, session = sides[pkg.name]
+        now = {"t": T0 + MINUTE}
+        donor = pkg.Database(pkg.ShardSet(2), clock=lambda: now["t"])
+        donor.create_namespace(NS, pkg.NamespaceOptions(index_enabled=False))
+        ids = [b"peer-%d" % i for i in range(16)]
+        donor.write_batch(NS, ids, np.full(16, T0, np.int64),
+                          np.arange(16.0), tags=[{b"i": b"%d" % i}
+                                                 for i in range(16)])
+        now["t"] = T0 + BLOCK + 11 * MINUTE
+        donor.tick()
+        srv = serve(donor).start()
+        placement = plm.initial_placement(
+            [plm.Instance("donor", srv.endpoint)], 2, 1)
+        sess = session(placement)
+        try:
+            joiner = pkg.Database(pkg.ShardSet(2), clock=lambda: now["t"])
+            joiner.create_namespace(NS, pkg.NamespaceOptions(
+                index_enabled=False))
+            res = pkg.bs.BootstrapProcess(
+                chain=("peers", "uninitialized_topology"),
+                ctx=pkg.bs.BootstrapContext(session=sess, placement=placement,
+                                            host_id="joiner")).run(joiner)
+            assert res[NS].unfulfilled.is_empty()
+            assert all(len(joiner.read(NS, sid, 0, now["t"])[0]) == 1
+                       for sid in ids)
+            fresh = plm.replace_instance(placement, "donor",
+                                         plm.Instance("new", "new:1"))
+            uninit = pkg.bs.UninitializedTopologyBootstrapper()
+            jns = joiner.namespace(NS)
+            jreq = pkg.bs.BootstrapProcess().target_ranges(jns, now["t"])
+            claims = (uninit.bootstrap(jns, jreq, pkg.bs.BootstrapContext(
+                placement=fresh)).m, uninit.bootstrap(
+                    jns, jreq, pkg.bs.BootstrapContext(
+                        placement=placement)).m)
+            assert claims[0] == jreq.m and claims[1] == {}
+            joined.append((joiner, res[NS].claimed["peers"].m, claims))
+        finally:
+            sess.close()
+            srv.close()
+    (got, gclaim, gun), (want, wclaim, wun) = joined
+    assert gclaim == wclaim and gun == wun
+    for shard_id in range(2):
+        a = got.namespace(NS).shards[shard_id]
+        b = want.namespace(NS).shards[shard_id]
+        assert a.registry.all_ids() == b.registry.all_ids()
+        assert sorted(a.blocks) == sorted(b.blocks) and a.blocks
+        for start, blk in a.blocks.items():
+            other = b.blocks[start]
+            assert np.asarray(blk.words).tobytes() == \
+                np.asarray(other.words).tobytes()
+            assert np.array_equal(blk.nbits, other.nbits)
+            assert np.array_equal(blk.npoints, other.npoints)

@@ -246,3 +246,50 @@ def test_kernel_wrappers_validate_inputs():
     before = codec_kernels.launch_counts()
     codec_kernels.pack_chunks(z, z, z, z, 8)
     assert codec_kernels.launch_counts() == before  # the plain path launches nothing
+
+
+def test_kernel_build_runs_once_under_concurrent_first_use(monkeypatch,
+                                                           tmp_path):
+    """The node server's handler threads may all make the kernels' first
+    use at once: build() loads the extension exactly once and hands every
+    thread the same module (cpp_extension.load stubbed by a slow fake)."""
+    import threading
+    import time
+
+    import torch.utils.cpp_extension as cpp_ext
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+
+    loads = []
+
+    def slow_load(**kw):
+        loads.append(kw["name"])
+        time.sleep(0.05)
+        return object()
+
+    monkeypatch.setattr(cpp_ext, "load", slow_load)
+    monkeypatch.setattr(ck, "_MODULE", None)
+    monkeypatch.setattr(ck, "BUILD_DIR", tmp_path / "build")
+    start = threading.Barrier(8)
+    got = []
+
+    def first_use():
+        start.wait()
+        got.append(ck.build())
+
+    import sys
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_use) for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert loads == ["m3_tpu_torch_kernels"]
+    assert len(got) == 8 and all(m is got[0] for m in got)
+    assert ck.build() is got[0] and (tmp_path / "build").is_dir()

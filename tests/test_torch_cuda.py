@@ -21,7 +21,11 @@ the agg_rollup_10x population on the card equals the CPU's bit for bit,
 and the rules engine's f32 compare on the card equals the CPU's. The
 durable path's blooms, WAL replay routing, recovered blocks and cold
 reads through the retriever on the card equal the CPU's bit for bit, and
-a hash fault on the bloom route raises typed."""
+a hash fault on the bloom route raises typed. A 3-node cluster on the
+card (node servers, a Session decoding its tiles on the card) gives the
+same fetch_tagged answers, peers bootstrap words and repaired rows as the
+same cluster with device="cpu", while handler threads launch the kernels
+concurrently."""
 
 import numpy as np
 import pytest
@@ -939,3 +943,82 @@ def test_hash_fault_on_the_bloom_route_raises_typed(cuda):
                 BloomFilter(1 << 12, 4).add_batch([b"a", b"b"], device=cuda)
     finally:
         guard.reset()
+
+
+def _cluster_run(device, root):
+    """A 3-node RF=3 cluster on `device`: 64 tagged series x 12 points at
+    ALL, sealed, 2 buffered points; then (fetch_tagged, a joiner's peers
+    bootstrap words, node0's rows after one value diverged and a repair)."""
+    from m3_tpu_torch.client import Session, SessionOptions
+    from m3_tpu_torch.cluster.topology import ConsistencyLevel
+    from m3_tpu_torch.index import query as iq
+    from m3_tpu_torch.storage import bootstrap as bs
+    from m3_tpu_torch.storage.block import encode_block
+    from m3_tpu_torch.storage.buffer import to_dense
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.repair import ShardRepairer
+    from m3_tpu_torch.testing.cluster import ClusterHarness
+
+    block = 2 * 3600 * 10**9
+    t0 = (1_600_000_000 * 10**9 // block) * block
+    h = ClusterHarness(3, 3, 8, start_ns=t0 + 120 * 10**9, data_root=root,
+                       device=device)
+    s = Session(h.topology, SessionOptions(
+        timeout_s=30, write_consistency=ConsistencyLevel.ALL), device=device)
+    try:
+        ids = [b"c.%02d" % i for i in range(64)]
+        vals = np.random.default_rng(5).standard_normal((12, 64))
+        for k in range(12):
+            s.write_batch(b"default", ids, np.full(64, t0 + k * 10**10),
+                          vals[k], [{b"__name__": b"c"}] * 64)
+        h.clock.advance(block + 11 * 60 * 10**9)
+        h.tick_all()
+        now = h.clock.now_ns
+        s.write_batch(b"default", ids, np.full(64, now), vals[0],
+                      [{b"__name__": b"c"}] * 64)
+        got = s.fetch_tagged(b"default", iq.TermQuery(b"__name__", b"c"),
+                             0, now + 1)
+        fetched = {k: (v["t"].tobytes(), v["v"].tobytes())
+                   for k, v in got.items()}
+        joiner = Database(ShardSet(8), clock=h.clock, device=device)
+        joiner.create_namespace(b"default", NamespaceOptions(
+            index_enabled=False))
+        bs.BootstrapProcess(chain=("peers",), ctx=bs.BootstrapContext(
+            session=s, placement=h.placement_svc.get(),
+            host_id="joiner")).run(joiner)
+        words = {(sid, st): np.asarray(b.words).tobytes()
+                 for sid, sh in joiner.namespace(b"default").shards.items()
+                 for st, b in sh.blocks.items()}
+        node0 = h.nodes["node0"].db
+        shard_id = node0.shard_set.lookup(ids[3])
+        shard = node0.namespace(b"default").shards[shard_id]
+        blk = shard.blocks[t0]
+        ts, vs, npts = blk.read_all()
+        vs = np.array(vs)
+        vs[blk.row_of(shard.registry.get(ids[3])), 2] += 1.0
+        mask = np.arange(ts.shape[1]) < npts[:, None]
+        shard.blocks[t0] = encode_block(t0, *to_dense(
+            np.repeat(blk.series_indices, npts), ts[mask], vs[mask]),
+            device=device)
+        stats = ShardRepairer(s, host_id="node0").repair_shard(
+            node0.namespace(b"default"), shard_id, t0, t0 + block)
+        healed = np.asarray(shard.blocks[t0].words).tobytes()
+        peer = np.asarray(h.nodes["node1"].db.namespace(b"default")
+                          .shards[shard_id].blocks[t0].words).tobytes()
+        return fetched, words, healed, peer, stats
+    finally:
+        s.close()
+        h.close()
+
+
+def test_cluster_on_card_equals_cpu(cuda, tmp_path):
+    before = ck.launch_counts()
+    card = _cluster_run("cuda", str(tmp_path / "card"))
+    after = ck.launch_counts()
+    host = _cluster_run("cpu", str(tmp_path / "host"))
+    assert all(after[k] > before[k] for k in ("pack", "decode", "hash"))
+    assert card[0] == host[0] and len(card[0]) == 64
+    assert card[1] == host[1] and card[1]
+    assert card[2] == card[3] == host[2] == host[3]
+    assert card[4].blocks_rebuilt == host[4].blocks_rebuilt == 1

@@ -48,8 +48,7 @@ from m3_tpu_torch.storage.database import Database
 from m3_tpu_torch.storage.mediator import Mediator, MediatorOptions
 from m3_tpu_torch.storage.namespace import NamespaceOptions
 from m3_tpu_torch.storage.retriever import BlockRetriever
-from m3_tpu_torch.storage.scrub import (DatabaseScrubber, RepairUnsupported,
-                                        ScrubOptions)
+from m3_tpu_torch.storage.scrub import DatabaseScrubber, ScrubOptions
 from m3_tpu_torch.testing import faultfs
 from m3_tpu_torch.utils import xtime
 from m3_tpu_torch.utils.health import Priority
@@ -518,7 +517,12 @@ def test_scrub_quarantined_past_retention_cleared_and_jitter(tmp_path):
 
 
 def test_scrub_start_stop_and_repairer_refused(tmp_path):
-    db, pm, _now, _ = _scrub_db(PORT, str(tmp_path))
+    """The scrubber's loop starts and stops; given a ShardRepairer over a
+    Session it repairs a corrupt fileset whose block is no longer
+    resident from a replica peer (a second database holding the same
+    writes behind a NodeServer), as the reference's does: the same
+    stats, the quarantined copy removed, reads equal to the peer's."""
+    db, pm, _now, _ = _scrub_db(PORT, str(tmp_path / "loop"))
     sc = DatabaseScrubber(db, pm, opts=ScrubOptions(
         interval_s=0.01, jitter_frac=0.0, max_bytes_per_s=0)).start()
     try:
@@ -529,8 +533,53 @@ def test_scrub_start_stop_and_repairer_refused(tmp_path):
     finally:
         sc.stop()
     assert sc.runs >= 1 and sc._thread is None
-    with pytest.raises(RepairUnsupported, match="A13.2"):
-        DatabaseScrubber(db, pm, repairer=object())
+    from m3_tpu.client import Session as JSession
+    from m3_tpu.client import SessionOptions as JSessionOptions
+    from m3_tpu.cluster import placement as jpl
+    from m3_tpu.cluster.topology import StaticTopology as JStaticTopology
+    from m3_tpu.rpc import NodeServer as JNodeServer
+    from m3_tpu.rpc import NodeService as JNodeService
+    from m3_tpu.storage.repair import ShardRepairer as JShardRepairer
+    from m3_tpu_torch.client import Session, SessionOptions
+    from m3_tpu_torch.cluster import placement as pl
+    from m3_tpu_torch.cluster.topology import StaticTopology
+    from m3_tpu_torch.rpc import NodeServer, NodeService
+    from m3_tpu_torch.storage.repair import ShardRepairer
+
+    cluster = {
+        "port": (lambda d: NodeServer(NodeService(d, device=CPU)), pl,
+                 StaticTopology,
+                 lambda t: Session(t, SessionOptions(timeout_s=5),
+                                   device=CPU), ShardRepairer),
+        "ref": (lambda d: JNodeServer(JNodeService(d)), jpl, JStaticTopology,
+                lambda t: JSession(t, JSessionOptions(timeout_s=5)),
+                JShardRepairer)}
+    out = []
+    for pkg in PKGS:
+        serve, plm, topo, session, repairer = cluster[pkg.name]
+        db, pm, now, ids = _scrub_db(pkg, str(tmp_path / pkg.name))
+        peer, _ppm, _pnow, _ = _scrub_db(pkg, str(tmp_path / (pkg.name + "p")))
+        srv = serve(peer).start()
+        sess = session(topo(plm.initial_placement(
+            [plm.Instance("peer", srv.endpoint)], 2, 1)))
+        try:
+            assert db.evict_flushed() >= 1
+            path = dict(pm.list_filesets(NS, 1))[T0]
+            _flip_data_byte(path)
+            st = pkg.DatabaseScrubber(
+                db, pm, repairer=repairer(sess, host_id="self"),
+                opts=pkg.ScrubOptions(seed=1)).run(now_ns=now["t"])[NS]
+            assert st.quarantined == 1 and st.unquarantined == 1
+            assert st.repair_attempts == 1 and st.blocks_repaired == 1
+            assert pm.list_quarantined(NS, 1) == []
+            reads = [_bits(db.read(NS, sid, 0, now["t"])) for sid in ids]
+            assert reads == [_bits(peer.read(NS, sid, 0, now["t"]))
+                             for sid in ids]
+            out.append((_stats(st), reads))
+        finally:
+            sess.close()
+            srv.close()
+    assert out[0] == out[1]
 
 
 # ---------------------------------------------------------------------------

@@ -193,12 +193,65 @@ ok = ok and wire.decode(wire.encode({b"k": [1, 2.5]})) == {b"k": [1, 2.5]}
 ok = ok and faultfs.DiskFaultPlan(seed=1, write_eio=1.0).schedule("write", "a", 1) == ["eio"]
 lock.release()
 
+from m3_tpu_torch.aggregator import ProducerHandler, decode_aggregated_batch
+from m3_tpu_torch.client import Session, SessionOptions
+from m3_tpu_torch.cluster import placement as cpl
+from m3_tpu_torch.cluster.client import ClusterClient
+from m3_tpu_torch.cluster.topology import ConsistencyLevel, StaticTopology
+from m3_tpu_torch.index import query as iq
+from m3_tpu_torch.query.remote import RemoteStorage, RemoteStorageServer
+from m3_tpu_torch.query.storage import FanoutStorage, SessionStorage
+from m3_tpu_torch.rpc import NodeServer, NodeService
+from m3_tpu_torch.storage.repair import ShardRepairer
+from m3_tpu_torch.testing.cluster import ClusterHarness, make_node_server
+from m3_tpu_torch.testing.faultnet import FaultPlan
+
+ch = ClusterHarness(3, 3, 4, start_ns=int(t[0]), data_root=os.path.join(root, "c"),
+                    fault_plan=FaultPlan(), device="cpu")
+cs = Session(ch.topology, SessionOptions(
+    timeout_s=10, write_consistency=ConsistencyLevel.ALL), device="cpu")
+csids = list(series)[:8]
+for k in range(20):
+    ch.clock.now_ns = int(t[k])
+    cs.write_batch(b"default", csids, np.full(8, t[k]),
+                   [series[x]["v"][k] for x in csids],
+                   [series[x]["tags"] for x in csids])
+ch.clock.advance(2 * hour + 11 * 60 * 10**9)
+ch.tick_all()
+got = cs.fetch_tagged(b"default", iq.TermQuery(b"__name__", b"bench_metric"),
+                      0, ch.clock.now_ns)
+ok = ok and sorted(got) == sorted(csids) and all(
+    (got[x]["v"] == series[x]["v"][:20]).all() for x in csids)
+srv = RemoteStorageServer(FanoutStorage([SessionStorage(cs, b"default")])).start()
+rs = RemoteStorage(srv.endpoint)
+blk = Engine(rs, device="cpu").execute_range(
+    "rate(bench_metric[1m])", int(t[8]), int(t[19]), 30 * 10**9)
+ok = ok and blk.values.shape[0] == 8 and np.isfinite(blk.values).any()
+rs.close()
+srv.close()
+st = ShardRepairer(cs, host_id="node0").repair_shard(
+    ch.nodes["node0"].db.namespace(b"default"), 0, 0, ch.clock.now_ns)
+ok = ok and st.checksum_mismatches == 0 and st.peer_errors == 0
+ok = ok and ClusterClient(store=MemStore()).placement_service().init(
+    [cpl.Instance("a", "a:1")], 4, 1).num_shards == 4
+pubs = []
+ProducerHandler(type("P", (), {"publish": lambda self, s, p: pubs.append(p)})(),
+                4).handle_columnar([([b"x"], np.array([1]), np.array([2.0]),
+                                     pol)])
+ok = ok and decode_aggregated_batch(pubs[0])[0].value == 2.0
+cs.close()
+ch.close()
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
 for make in (lambda: Engine(DictStorage(series)),
              lambda: Database(ShardSet(4)), lambda: Aggregator(),
              lambda: MetricList(60 * 10**9), lambda: BlockRetriever(pm),
-             lambda: BootstrapProcess().run(ddb)):
+             lambda: BootstrapProcess().run(ddb),
+             lambda: Session(StaticTopology(cpl.initial_placement(
+                 [cpl.Instance("a", "a:1")], 4, 1))),
+             lambda: ClusterHarness(1, 1, 2), lambda: make_node_server(2),
+             lambda: NodeService(fresh)):
     try:
         make()
         ok = False
@@ -221,11 +274,16 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     managed Aggregator.flush), a rules engine round, and the durable path
     (a lockfile, a commit-logged write, flush with index segments,
     eviction, a snapshot, a bootstrap from filesystem and commit log, a
-    scrub, the wire codec and a disk-fault plan), in a fresh process; the
-    Engine, the Database, the Aggregator, a MetricList and a
-    BlockRetriever also refuse to start without a card unless asked for
-    the CPU, and a bootstrap of a database placed on the card refuses to
-    run without one."""
+    scrub, the wire codec and a disk-fault plan), and the replicated
+    cluster (a 3-node harness behind fault proxies, writes and a
+    fetch_tagged through a Session, a query over a RemoteStorage in front
+    of a FanoutStorage of a SessionStorage, a repair sweep, a placement
+    through the cluster client and a producer handler's payload), in a
+    fresh process; the Engine, the Database, the Aggregator, a
+    MetricList, a BlockRetriever, a Session, a ClusterHarness, a node
+    server and a NodeService also refuse to start without a card unless
+    asked for the CPU, and a bootstrap of a database placed on the card
+    refuses to run without one."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
