@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
-durability and cluster paths on one NVIDIA GPU.
+durability, cluster and coordinator paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -241,11 +241,50 @@ Phases (each synchronises the device and fails the run on any error):
               ConsistencyError. (c) one value overwritten on node0's sealed
               block (K1): a ShardRepairer heals it (the peers' tiles
               through K2, the rebuilt block through K1): the three nodes'
-              rows of that block equal, the series reads back bit for bit
+              rows of that block equal, the series reads back bit for bit.
+              Before the cluster stops, phase 14 (g): a run_clustered
+              coordinator on its Session answers two of the queries over
+              HTTP equal to (b)'s answers over SessionStorage
+  14. coordinator  the embedded coordinator on the card, over HTTP on
+              127.0.0.1: run_embedded over Database(ShardSet(16)) with the
+              index (M3's single-node deployment with the embedded
+              coordinator), every number beside the card's name and power
+              limit. (a) bench_query_serve_e2e's corpus at its size
+              (10,000 counters x 240 points at 10 s, 200 hosts, seed 61;
+              2.4 M samples) as snappy protobuf remote writes of 500 series
+              x 24 points (one DownsamplerAndWriter.write_request and one
+              K3 routing a request), samples/s and the decode's share; the
+              seal (K1); 200 series read back bit for bit. (e) between
+              the writes and the seal, Coordinator.rules_engine(): two
+              recording rules and an alert rule for 5 steps (2 rounds),
+              the rows it wrote back equal to a device="cpu" run under the
+              rules bounds, transitions equal as sets, the recorded rate
+              sum read over HTTP after the seal. (b) the bench's serve mix
+              (rate and max_over_time matrices, sum by host, an instant
+              vector): each shape once on this thread (the cold reads
+              and the plan captures), within the compiled-route bounds of
+              a device="cpu" engine over the same corpus, its
+              render_result_ref bytes what every HTTP response must
+              equal; over HTTP 6 rounds of replays (p50, p99, wire
+              bytes), a traced round (the card's busy share), 4 threads
+              sending the instant vector at once; K2, K4 launches and
+              graph replays. (c) 10,000 carbon paths x 15 points through
+              the carbon listener; 4 Graphite renders over HTTP equal to
+              GraphiteEngine on the card and the CPU (rtol 1e-5, atol
+              1e-8), 2 finds. (d) bench_downsample_rules' rule set (801
+              mapping and 200 rollup rules with a DROP_MUST class) over
+              100,000 of its metrics, published through the KV
+              RuleSetStore, a cold and a warm pass through
+              DownsamplerAndWriter.write_batch (metrics/s), the flush into
+              agg_1m and agg_5m (agg_flush, K3); the write_ref oracle on
+              4,000 metrics equal bit for bit; a rollup series over HTTP.
+              (f) an injected ComputeError on
+              the plan route answers 503, 200 after guard.reset()
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush, graphite, plan, aggregator, durability, cluster), each count set to
-0 just before its path is driven and read just after. A compiled plan's
+flush, graphite, plan, aggregator, durability, cluster, coordinator;
+phase 14 (g) counts in cluster), each count set to 0 just before its
+path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
 the window kernel's count adds its warm-up launch and, per replay, the
 launches its graph holds.
@@ -721,6 +760,10 @@ def main() -> int:
     # -- 13. the client and the replicated cluster --------------------------
     for name, n in _cluster_phase().items():
         by_path[name]["cluster"] = n
+
+    # -- 14. the coordinator -----------------------------------------------
+    for name, n in _coordinator_phase().items():
+        by_path[name]["coordinator"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -3734,8 +3777,10 @@ def _cluster_phase() -> dict:
     RF=3 cluster: quorum writes through the Session, fetch_tagged against
     every node's reads, PromQL over SessionStorage against LocalStorage,
     queries while a second thread writes, one node taken away; (c) a
-    diverged replica healed by the repairer. Returns the kernels'
-    launches over the phase (the counts set to 0 just before it)."""
+    diverged replica healed by the repairer; phase 14 (g), a
+    run_clustered coordinator, on the cluster before it stops. Returns
+    the kernels' launches over the phase (the counts set to 0 just before
+    it)."""
     import shutil
     import tempfile
 
@@ -3754,6 +3799,7 @@ def _cluster_phase() -> dict:
         cluster = _rf3_cluster(os.path.join(root, "rf3"))
         try:
             _repair_divergence(cluster)
+            _clustered_coordinator(cluster)
         finally:
             cluster["session"].close()
             cluster["harness"].close()
@@ -4056,9 +4102,13 @@ def _rf3_cluster(root: str) -> dict:
         want[q] = Engine(local).execute_range(q, start, q_end, STEP_NS)
     remote = Engine(SessionStorage(session, ns))
     before = wk.window_stat.launches
+    # Phase 14 (g) holds a run_clustered coordinator to these answers.
+    cluster["answers"] = {}
+    cluster["range"] = (start, q_end)
     with step(f"{len(CLUSTER_QUERIES)} queries over SessionStorage"):
         for q in CLUSTER_QUERIES:
             blk = remote.execute_range(q, start, q_end, STEP_NS)
+            cluster["answers"][q] = blk
             route = remote.last_route()["route"]
             rel, ab = _check_query(q, blk, want[q], "SessionStorage against "
                                    "node0's LocalStorage")
@@ -4210,6 +4260,758 @@ def _repair_divergence(cluster: dict) -> None:
     phase(f"cluster (c): the diverged replica healed ({stats}); all three "
           f"nodes' rows of shard {shard_id}'s block equal, the series "
           f"reads back bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the coordinator
+# ---------------------------------------------------------------------------
+
+# An embedded coordinator (run_embedded over Database(ShardSet(16)) with
+# the index, M3's documented single-node deployment) driven over HTTP on
+# 127.0.0.1. (a) bench_query_serve_e2e's corpus (bench.py:1574-1712):
+# 10,000 counters x 240 points at 10 s over 200 hosts, seed 61, as
+# snappy protobuf remote writes of COORD_REQUEST (series, points) each;
+# (b) the bench's serve mix; (c) phase 9's carbon shape, CARBON_POINTS_14
+# points; (d) bench_downsample_rules' corpus (bench.py:1843-2017) at
+# DS_METRICS metrics, 800 + 1 mapping and 200 rollup rules, its oracle on
+# the first DS_ORACLE metrics; (e) two recording rules and an alert rule
+# for sum(COORD_RULE_ROUNDS) steps.
+COORD_SERIES, COORD_HOSTS, COORD_SEED = 10_000, 200, 61
+COORD_REQUEST = (500, 24)
+SERVE_ROUNDS, SERVE_THREADS = 6, 4
+SERVE_MIX = (
+    ("rate_matrix", "rate(bench_requests[5m])", False),
+    ("max_over_time_matrix", "max_over_time(bench_requests[10m])", False),
+    ("sum_by_host", "sum by (host) (rate(bench_requests[5m]))", False),
+    ("instant_vector", "sum by (host) (bench_requests)", True),
+)
+CARBON_POINTS_14 = 15
+CARBON_TARGETS_14 = ("sumSeries(bench.*.metric*)",
+                     "movingAverage(bench.host*.metric0, '5min')",
+                     "groupByNode(bench.*.metric1, 1, 'sum')",
+                     "highestCurrent(bench.host*.metric0, 5)")
+DS_METRICS, DS_MAPPING, DS_ROLLUP, DS_ORACLE = 100_000, 800, 200, 4_000
+COORD_RULE_ROUNDS = (1, 4)   # steps a round (a first round evaluates one)
+# (e) runs after this many of (a)'s chunks of COORD_REQUEST[1] points (at
+# t[23]): standing rules evaluate as the data arrives, and every buffered
+# series read then scans a shorter buffer.
+RULES_AFTER_CHUNKS = 1
+COORD_RECORDS = ("sum by (host) (rate(bench_requests[5m]))",
+                 "max_over_time(bench_requests[5m])")
+# The alert watches what the second recording rule records, so a round
+# fetches two expressions, not three.
+COORD_ALERT = ("max_over_time(bench_requests[5m])", ">", 2.5e9)
+
+
+def _http(url: str, body=None):
+    """(status, bytes) of a GET, or of a POST of a protobuf body; an
+    error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=body, method="GET" if body is None else "POST",
+        headers={} if body is None else {
+            "Content-Type": "application/x-protobuf"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def _serve_url(base: str, t, shape) -> str:
+    """The bench's request of one mix shape: the matrices from t[60] to
+    t[-1] at step 30 s, the instant vector at t[-1]."""
+    import urllib.parse
+
+    _name, q, instant = shape
+    if instant:
+        return (f"{base}/api/v1/query?" + urllib.parse.urlencode(
+            {"query": q, "time": int(t[-1]) / 1e9}))
+    return (f"{base}/api/v1/query_range?" + urllib.parse.urlencode(
+        {"query": q, "start": int(t[60]) / 1e9, "end": int(t[-1]) / 1e9,
+         "step": "30"}))
+
+
+def _coordinator_phase() -> dict:
+    """Phase 14: the coordinator on the card, over real HTTP. The steps
+    run in this order: (a) the remote write, with (e) the rules engine
+    between its chunks (the rules' outputs must land inside the buffer's
+    acceptance window), (a) the seal, (b) the serve mix (each shape
+    first on this thread: the cold reads and the plan captures), the
+    read-backs of (a) and (e), (c) carbon and Graphite, (d) the
+    downsampler, (f) a compute
+    error answered 503 ((g), run_clustered, runs inside phase 13 while
+    its cluster is up). Returns the kernels' launches over the phase
+    (the counts set to 0 just before it)."""
+    import gc
+
+    import torch
+
+    from m3_tpu_torch.cluster.kv import MemStore
+    from m3_tpu_torch.coordinator import run_embedded
+    from m3_tpu_torch.index.namespace_index import NamespaceIndex
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel import compile as pcompile
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.testing import serve_corpus
+
+    series, t = serve_corpus(COORD_SERIES, COORD_HOSTS, COORD_SEED)
+    now = {"t": int(t[0])}
+    clock = lambda: now["t"]  # noqa: E731
+    pols = {StoragePolicy.parse("1m:40h"): b"agg_1m",
+            StoragePolicy.parse("5m:40h"): b"agg_5m"}
+    b0 = time.perf_counter()
+    chunks = _remote_write_bodies(series, t)
+    build_s = time.perf_counter() - b0
+    pcompile.clear()
+    # The earlier phases' live objects leave the collector's scans, as in
+    # a coordinator process of its own.
+    gc.collect()
+    gc.freeze()
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = Database(ShardSet(num_shards=16), clock=clock)
+    for ns in (b"default", *pols.values()):
+        db.create_namespace(ns, NamespaceOptions(),
+                            index=NamespaceIndex(clock=clock))
+    kv = MemStore()
+    coord = run_embedded(db, kv_store=kv, aggregated_namespaces=pols,
+                         clock=clock)
+    try:
+        recorded = {}
+        _coord_remote_write(
+            coord, chunks, build_s, series, t, now,
+            lambda k: recorded.update(
+                _coord_rules(coord, db, series, t[:k + 1], now)))
+        _coord_seal(db, now, t)
+        serial = _coord_serve(coord, series, t)
+        _coord_read_back(coord, db, series, t, recorded)
+        _coord_carbon(coord, db, now)
+        _coord_downsample(coord, db, kv, pols, now)
+        _coord_compute_error(coord, t, serial)
+    finally:
+        coord.close()
+        db.close()
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    secs = time.perf_counter() - t0
+    pcompile.clear()
+    torch.cuda.empty_cache()
+    _card(f"coordinator: phase 14 in {secs!r} s, launches {launches}")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash", "window")),
+          f"phase 14 did not launch every kernel: {launches}")
+    return launches
+
+
+def _remote_write_bodies(series, t):
+    """The corpus as snappy WriteRequest bodies of COORD_REQUEST (series,
+    points), chunk by chunk in time order, through promremote's
+    encode_write_request: [(last timestamp of the chunk, [(body,
+    samples), ...]), ...]. Built before the phase clock starts: encoding
+    the 2.4 M samples is the sender's work, not the coordinator's."""
+    from m3_tpu_torch.coordinator import promremote as pr
+
+    per, pts = COORD_REQUEST
+    sids = list(series)
+    t_ms = (t // 1_000_000).tolist()
+    chunks = []
+    for k0 in range(0, len(t), pts):
+        k1 = min(k0 + pts, len(t))
+        bodies = []
+        for g0 in range(0, len(sids), per):
+            group = sids[g0:g0 + per]
+            req = [(series[s]["tags"],
+                    list(zip(t_ms[k0:k1], series[s]["v"][k0:k1].tolist())))
+                   for s in group]
+            bodies.append((pr.snappy_compress(pr.encode_write_request(req)),
+                           len(group) * (k1 - k0)))
+        chunks.append((int(t[k1 - 1]), bodies))
+    return chunks
+
+
+def _coord_remote_write(coord, chunks, build_s, series, t, now,
+                        rules) -> None:
+    """(a) The corpus as snappy protobuf WriteRequests of COORD_REQUEST
+    (series, points) each, in time order (the clock at each chunk's last
+    point), to /api/v1/prom/remote/write: one
+    DownsamplerAndWriter.write_request a request, one K3 routing a
+    request. Samples/s over the posts, and
+    the decode's share: the handler's promremote.snappy_decompress and
+    decode_write_request, timed where they run. After
+    RULES_AFTER_CHUNKS chunks, rules(index of the last point written)
+    runs (e), outside the timed posts."""
+    from m3_tpu_torch.coordinator import promremote
+
+    step = _Steps("coordinator (a)")
+    pts = COORD_REQUEST[1]
+    n = len(series) * len(t)
+    n_req = sum(len(b) for _, b in chunks)
+    wire = sum(len(x) for _, b in chunks for x, _n in b)
+    url = coord.endpoint + "/api/v1/prom/remote/write"
+    decode = {"s": 0.0}
+    real = {name: getattr(promremote, name)
+            for name in ("snappy_decompress", "decode_write_request")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            d0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                decode["s"] += time.perf_counter() - d0
+        return call
+
+    post_s = 0.0
+    for name, fn in real.items():
+        setattr(promremote, name, timed(fn))
+    try:
+        with step(f"{n_req} remote-write requests, {n} samples (and (e))"):
+            for c, (t_last, bodies) in enumerate(chunks):
+                if c == RULES_AFTER_CHUNKS:
+                    rules(c * pts - 1)
+                now["t"] = t_last
+                w0 = time.perf_counter()
+                for body, n_body in bodies:
+                    code, out = _http(url, body)
+                    check(code == 200 and json.loads(out)["wrote"] == n_body,
+                          f"remote write answered {code}: {out[:200]!r}")
+                post_s += time.perf_counter() - w0
+    finally:
+        for name, fn in real.items():
+            setattr(promremote, name, fn)
+    _card(f"coordinator (a) remote write: {n} samples in {n_req} requests "
+          f"({wire} bytes snappy; encoded before the phase in {build_s!r} "
+          f"s) in {post_s!r} s: "
+          f"{n / post_s!r} samples/s; the handlers' snappy + protobuf "
+          f"decode {decode['s']!r} s ({decode['s'] / post_s * 100!r}% of "
+          f"the posts)")
+
+
+def _coord_rules(coord, db, series, t, now) -> dict:
+    """(e) Coordinator.rules_engine(): two recording rules (a grouped rate
+    sum; max_over_time, K4 inside its plan graph) and one alert rule over
+    the corpus written so far (`t`, its grid up to now), the steps of
+    COORD_RULE_ROUNDS at 30 s ending at its last point;
+    the recorded rows go back through the coordinator's
+    DownsamplerAndWriter.write_batch (K3). The same rounds on
+    Engine(DictStorage of the same points, device="cpu") with a sink:
+    the rows the card wrote (read back from the store) within the rules
+    answers' bounds (PERF.md §2) of the CPU's, transitions equal as
+    sets. Returns the CPU's rows, {(tags, time): value}, for the read
+    over HTTP after the seal."""
+    import torch
+
+    from m3_tpu_torch.coordinator.rules_engine import (AlertRule,
+                                                       RecordingRule,
+                                                       RulesEngine)
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.model import METRIC_NAME, Matcher, MatchType
+    from m3_tpu_torch.query.storage import LocalStorage
+    from m3_tpu_torch.testing import DictStorage
+
+    written = DictStorage({s: dict(e, t=t, v=e["v"][:len(t)])
+                           for s, e in series.items()})
+    n_steps = sum(COORD_RULE_ROUNDS)
+    clocks = [int(t[-1]) - (n_steps - int(j)) * STEP_NS
+              for j in np.cumsum(COORD_RULE_ROUNDS)]
+    recs = [RecordingRule(b"coord:%d" % i, q, labels=((b"rule", b"r%d" % i),))
+            for i, q in enumerate(COORD_RECORDS)]
+    alert = AlertRule(b"coord:hot", *COORD_ALERT)
+    cpu_rows = []
+    engines = {"card": coord.rules_engine(step_ns=STEP_NS),
+               "cpu": RulesEngine(Engine(written, device="cpu"),
+                                  cpu_rows.extend, step_ns=STEP_NS)}
+    for re in engines.values():
+        for r in recs:
+            re.add_recording(r)
+        re.add_alert(alert)
+    rounds = {"card": [], "cpu": []}
+    for c in clocks:
+        now["t"] = c
+        for who, re in engines.items():
+            torch.cuda.synchronize()
+            r0 = time.perf_counter()
+            res = re.evaluate(c)
+            torch.cuda.synchronize()
+            rounds[who].append(((time.perf_counter() - r0) * 1e3, res))
+    for (_, a), (_, b) in zip(rounds["card"], rounds["cpu"]):
+        check((a.steps, a.exprs_evaluated, a.recorded_rows) ==
+              (b.steps, b.exprs_evaluated, b.recorded_rows),
+              f"coordinator (e): round differs: {a} against {b}")
+        check({(x.rule, x.series, x.kind, x.time_nanos) for x in
+               a.transitions} == {(x.rule, x.series, x.kind, x.time_nanos)
+                                  for x in b.transitions},
+              "coordinator (e): the card's transitions differ from the CPU's")
+    key = lambda r: (tuple(sorted(r[0].items())), r[1])  # noqa: E731
+    ck_ = {key(r): r[2] for r in cpu_rows}
+    gk = {}
+    store = LocalStorage(db, b"default")
+    for i in range(len(COORD_RECORDS)):
+        got = store.fetch_raw([Matcher(MatchType.EQUAL, METRIC_NAME,
+                                       b"coord:%d" % i)], 0, now["t"] + 1)
+        for e in got.values():
+            for tt, v in zip(e["t"].tolist(), e["v"].tolist()):
+                gk[key((e["tags"], tt, v))] = v
+    check(gk.keys() == ck_.keys() and len(gk) > 0,
+          "coordinator (e): recorded rows differ in keys")
+    worst = 0.0
+    for i, q in enumerate(COORD_RECORDS):
+        keys = [k for k in ck_ if dict(k[0])[b"__name__"] == b"coord:%d" % i]
+        a = np.array([gk[k] for k in keys])
+        b = np.array([ck_[k] for k in keys])
+        tol = _plan_tol(q, b)
+        check(bool(np.allclose(a, b, equal_nan=True, **tol)),
+              f"coordinator (e): recorded {q} beyond {tol}")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+            np.abs(b), 1e-30))))
+    n_trans = sum(len(r.transitions) for _, r in rounds["card"])
+    check(n_trans > 0, "coordinator (e): no transition")
+    steps = [r.steps for _, r in rounds["card"]]
+    check(steps == list(COORD_RULE_ROUNDS), f"rule steps {steps}")
+    _card(f"coordinator (e) rules: {steps} steps a round, card ms "
+          f"{[round(ms, 3) for ms, _ in rounds['card']]}, CPU ms "
+          f"{[round(ms, 3) for ms, _ in rounds['cpu']]}; {len(gk)} "
+          f"recorded rows written back and read from the store (max rel "
+          f"diff to the CPU {worst!r}), {n_trans} transitions (equal sets)")
+    return ck_
+
+
+def _coord_seal(db, now, t) -> None:
+    """(a) The clock past the block's end and buffer_past: the node ticks
+    and seals (K1)."""
+    step = _Steps("coordinator (a)")
+    now["t"] = int(t[-1]) - int(t[-1]) % BLOCK_NS + BLOCK_NS + 11 * MINUTE_NS
+    with step("tick: seal (K1)"):
+        sealed = db.tick()["sealed"]
+    check(sealed >= 16, f"tick sealed {sealed} blocks")
+    _card(f"coordinator (a) seal: {sealed} blocks")
+
+
+def _coord_read_back(coord, db, series, t, recorded) -> None:
+    """(a) 200 series read back from the sealed blocks equal to the
+    corpus bit for bit; (e) the recorded grouped rate sum, sealed now,
+    over /api/v1/query_range: every (host, time) cell the CPU's rounds
+    recorded, within the rules answers' bounds."""
+    import urllib.parse
+
+    from m3_tpu_torch.metrics import id as metric_id
+
+    for s in list(series)[::50]:
+        e = series[s]
+        tags = {k: v for k, v in e["tags"].items() if k != b"__name__"}
+        sid = metric_id.encode(e["tags"][b"__name__"], tags)
+        rt, rv = db.read(b"default", sid, int(t[0]), int(t[-1]) + 1)
+        check(rt.tobytes() == t.tobytes() and np.asarray(
+            rv, np.float64).tobytes() == e["v"].tobytes(),
+            f"{sid!r}: the stored series differs from what was written")
+    _card("coordinator (a) 200 series read back from the sealed blocks bit "
+          "for bit")
+
+    want = {(dict(k[0])[b"host"].decode(), k[1]): v
+            for k, v in recorded.items()
+            if dict(k[0])[b"__name__"] == b"coord:0"}
+    times = sorted({tt for _h, tt in want})
+    q = urllib.parse.urlencode({
+        "query": 'coord:0{rule="r0"}', "start": times[0] / 1e9,
+        "end": times[-1] / 1e9, "step": "30"})
+    code, body = _http(f"{coord.endpoint}/api/v1/query_range?{q}")
+    check(code == 200, f"recorded series over HTTP: {code}")
+    got = {(r["metric"]["host"], round(float(tt) * 1e9)): float(v)
+           for r in json.loads(body)["data"]["result"]
+           for tt, v in r["values"]}
+    check(got.keys() == want.keys(), f"recorded series over HTTP: "
+          f"{len(got)} cells, {len(want)} recorded")
+    exp = np.array([want[k] for k in want])
+    tol = _plan_tol(COORD_RECORDS[0], exp)
+    check(bool(np.allclose([got[k] for k in want], exp, **tol)),
+          f"recorded series over HTTP beyond {tol}")
+    _card(f"coordinator (e) the recorded {COORD_RECORDS[0]!r}: {len(got)} "
+          f"cells over HTTP from the sealed block, equal to the CPU's "
+          f"rounds")
+
+
+def _coord_serve(coord, series, t) -> dict:
+    """(b) The bench's serve mix against the sealed data. On this thread
+    first, each shape once through the coordinator's engine (the cold
+    reads and the plan captures) and through Engine(DictStorage of the
+    same corpus, device="cpu"): within the compiled route's bounds; its
+    render_result_ref bytes are what every HTTP response of the shape
+    must equal. Then over HTTP: SERVE_ROUNDS rounds (p50, p99 and wire
+    bytes a shape; every request a replay), one traced round (the card's
+    busy share), and SERVE_THREADS threads sending the instant vector at
+    once (one executable replayed from every thread). Returns the
+    expected bytes by shape."""
+    import threading
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel import compile as pcompile
+    from m3_tpu_torch.query import render
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.testing import DictStorage
+
+    base = coord.endpoint
+    step = _Steps("coordinator (b)")
+
+    def replays():
+        return sum(exe.replays for _k, exe in pcompile.executables())
+
+    before = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    r_before = replays()
+    eng, cpu = coord.engine, Engine(DictStorage(series), device="cpu")
+    start, end = int(t[60]), int(t[-1])
+    serial, rels, routes = {}, {}, {}
+    v0 = time.perf_counter()
+    for name, q, instant in SERVE_MIX:
+        if instant:
+            blk = eng.execute_instant(q, end)
+            ref = cpu.execute_instant(q, end)
+        else:
+            blk = eng.execute_range(q, start, end, STEP_NS)
+            ref = cpu.execute_range(q, start, end, STEP_NS)
+        routes[name] = eng.last_route()["route"]
+        serial[name] = render.render_result_ref(blk, instant=instant)
+        rels[name] = _check_plan(q, blk, ref, "coordinator (b) against the "
+                                 "CPU")
+    verify_s = time.perf_counter() - v0
+    walls = {s[0]: [] for s in SERVE_MIX}
+    with step(f"{SERVE_ROUNDS} timed rounds"):
+        for _ in range(SERVE_ROUNDS):
+            for shape in SERVE_MIX:
+                r0 = time.perf_counter()
+                code, body = _http(_serve_url(base, t, shape))
+                walls[shape[0]].append(time.perf_counter() - r0)
+                check(code == 200 and body == serial[shape[0]],
+                      f"{shape[0]}: {code}, the response differs from "
+                      f"render_result_ref of the engine's answer")
+    with step("a traced round"), _instrumented({}) as traced:
+        for shape in SERVE_MIX:
+            _http(_serve_url(base, t, shape))
+    after = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    moved = {k: after[k] - before[k] for k in after}
+    n_replays = replays() - r_before
+    for name, _q, _i in SERVE_MIX:
+        p50 = float(np.percentile(walls[name], 50)) * 1e3
+        p99 = float(np.percentile(walls[name], 99)) * 1e3
+        _card(f"coordinator (b) {name}: p50 {p50!r} ms, p99 {p99!r} ms of "
+              f"{len(walls[name])} requests (one a round, so the p99 is "
+              f"near their largest), {len(serial[name])} wire bytes, "
+              f"route {routes[name]}, max rel diff to the CPU "
+              f"{rels[name]!r}")
+    answers, errors = [], []
+
+    def client():
+        try:
+            answers.append(_http(_serve_url(base, t, SERVE_MIX[3]))[1])
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+
+    c0 = time.perf_counter()
+    threads = [threading.Thread(target=client)
+               for _ in range(SERVE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    conc_s = time.perf_counter() - c0
+    check(not errors and len(answers) == SERVE_THREADS,
+          f"concurrent clients: {errors}")
+    check(all(body == serial[SERVE_MIX[3][0]] for body in answers),
+          "a concurrent client's answer differs from the serial one")
+    n_req = SERVE_ROUNDS * len(SERVE_MIX)
+    total = sum(sum(w) for w in walls.values())
+    _card(f"coordinator (b) serve mix: {n_req / total!r} responses/s over "
+          f"{n_req} requests, {sum(len(b) for b in serial.values())} wire "
+          f"bytes a round; launches {moved}, plan graph replays "
+          f"{n_replays}; the traced round: {_split_text(traced)}; the "
+          f"engine's first runs (cold reads, captures), render_result_ref "
+          f"and the CPU's answers {verify_s!r} s; {SERVE_THREADS} threads' "
+          f"{SERVE_MIX[3][0]} at once in {conc_s!r} s, equal to the "
+          f"serial answer")
+    check(moved["decode"] > 0 and moved["window"] > 0 and n_replays > 0,
+          f"coordinator (b): K2 {moved['decode']}, K4 {moved['window']}, "
+          f"replays {n_replays}")
+    return serial
+
+
+def _coord_carbon(coord, db, now) -> None:
+    """(c) phase 9's carbon shape (CARBON_HOSTS x CARBON_METRICS paths, seed
+    29) at CARBON_POINTS_14 points at 10 s, as plaintext lines through
+    the coordinator's carbon listener (one write a line); then
+    CARBON_TARGETS_14 over /api/v1/graphite/render and two finds: each
+    render equal (names, timestamps, null cells; values within rtol
+    1e-5, atol 1e-8) to GraphiteEngine over the same LocalStorage on the
+    card and on the CPU; the finds list every child."""
+    import socket
+    import urllib.parse
+
+    from m3_tpu_torch.coordinator.carbon_ingest import CarbonServer
+    from m3_tpu_torch.query.graphite import GraphiteEngine, series_name
+    from m3_tpu_torch.query.storage import LocalStorage
+
+    step = _Steps("coordinator (c)")
+    end_s = now["t"] // 10**9
+    base_s = end_s - 10 * (CARBON_POINTS_14 - 1)
+    tc = (base_s + 10 * np.arange(CARBON_POINTS_14, dtype=np.int64)) * 10**9
+    corpus = _carbon_corpus(tc)
+    lines = b"".join(
+        b"%s %r %d\n" % (path, v, ts // 10**9)
+        for path, e in corpus.items() for ts, v in zip(tc.tolist(),
+                                                       e["v"].tolist()))
+    n = len(corpus) * CARBON_POINTS_14
+    now["t"] = int(tc[-1])
+    srv = CarbonServer(coord.writer).start()
+    try:
+        host, port = srv.endpoint.rsplit(":", 1)
+        with step(f"{n} carbon lines through the listener"):
+            c0 = time.perf_counter()
+            with socket.create_connection((host, int(port))) as sock:
+                sock.sendall(lines)
+            deadline = time.perf_counter() + 300
+            while (srv.lines_ingested + srv.lines_malformed < n
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+            carbon_s = time.perf_counter() - c0
+    finally:
+        srv.close()
+    check(srv.lines_ingested == n and srv.lines_malformed == 0,
+          f"carbon: {srv.lines_ingested} ingested, {srv.lines_malformed} "
+          f"malformed of {n}")
+    storage = LocalStorage(db, b"default")
+    card = GraphiteEngine(storage)
+    cpu = GraphiteEngine(storage, device="cpu")
+    for target in CARBON_TARGETS_14:
+        r0 = time.perf_counter()
+        code, body = _http(f"{coord.endpoint}/api/v1/graphite/render?"
+                           + urllib.parse.urlencode(
+                               {"target": target, "from": base_s,
+                                "until": end_s, "step": "10"}))
+        http_s = time.perf_counter() - r0
+        check(code == 200, f"{target}: {code} {body[:200]!r}")
+        got = json.loads(body)
+        for eng, who in ((card, "the card"), (cpu, "the CPU")):
+            blk = eng.render(target, base_s * 10**9, end_s * 10**9,
+                             10 * 10**9)
+            check([s["target"] for s in got]
+                  == [series_name(x).decode() for x in blk.series_tags],
+                  f"{target}: names differ from {who}'s render")
+            times = (blk.meta.times() // 10**9).tolist()
+            vals = np.asarray(blk.values, np.float64)
+            for s, row in zip(got, vals):
+                check([p[1] for p in s["datapoints"]] == times,
+                      f"{target}: timestamps differ from {who}'s")
+                gv = np.array([np.nan if p[0] is None else p[0]
+                               for p in s["datapoints"]])
+                check(bool((np.isnan(gv) == ~np.isfinite(row)).all())
+                      and bool(np.allclose(gv, row, rtol=1e-5, atol=1e-8,
+                                           equal_nan=True)),
+                      f"{target}: values differ from {who}'s render")
+        _card(f"coordinator (c) render {target!r}: {len(got)} series in "
+              f"{http_s!r} s over HTTP, equal to the card's and the CPU's")
+    for query, want in (("bench.*", CARBON_HOSTS),
+                        ("bench.host7.*", CARBON_METRICS)):
+        code, body = _http(f"{coord.endpoint}/api/v1/graphite/find?"
+                           + urllib.parse.urlencode(
+                               {"query": query, "from": base_s}))
+        found = json.loads(body)
+        check(code == 200 and len(found) == want,
+              f"find {query}: {code}, {len(found)} of {want}")
+    _card(f"coordinator (c) carbon: {n} lines in {carbon_s!r} s "
+          f"({n / carbon_s!r} lines/s); {len(CARBON_TARGETS_14)} renders "
+          f"and 2 finds equal")
+
+
+def _coord_downsample(coord, db, kv, pols, now) -> None:
+    """(d) bench_downsample_rules' corpus (testing.rules_corpus: DS_METRICS
+    metrics, DS_MAPPING + 1 mapping rules with the DROP_MUST class,
+    DS_ROLLUP rollup rules), its samples timed at the current clock, the
+    rule set published through the KV RuleSetStore the coordinator's
+    Matcher watches. A cold and a warm pass through
+    DownsamplerAndWriter.write_batch (one call per metric type, the
+    downsampling leg alone, as the bench times the Downsampler), then the
+    flush 6 minutes later (every 1m and 5m window closed, inside
+    buffer_past) into agg_1m and agg_5m (the timers' quantile ordering on
+    the agg_flush route, the writes routed by K3). The bench's oracle:
+    fresh Downsamplers on the card over the first DS_ORACLE samples,
+    write_batch against write_ref: equal matched and dropped counts and
+    flushed rows bit for bit. One aggregated rollup series read over
+    HTTP from a coordinator on agg_1m."""
+    import urllib.parse
+
+    from m3_tpu_torch.coordinator import Downsampler, run_embedded
+    from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
+    from m3_tpu_torch.metrics.metric import MetricType
+    from m3_tpu_torch.testing import rules_corpus
+
+    step = _Steps("coordinator (d)")
+    rs, samples = rules_corpus(DS_METRICS, DS_MAPPING, DS_ROLLUP)
+    t_d = now["t"]
+    samples = [(tags, t_d, v, mt) for tags, _t, v, mt in samples]
+    store = RuleSetStore(kv)
+    store.publish(rs)
+    by_type = {}
+    for tags, ts, v, mt in samples:
+        by_type.setdefault(mt, []).append((tags, ts, v))
+    check(MetricType.TIMER in by_type, "no timer in the corpus")
+    ds = coord.downsampler
+
+    def one_pass():
+        m0, d0 = ds.samples_matched, ds.samples_dropped
+        p0 = time.perf_counter()
+        for mt, rows in by_type.items():
+            coord.writer.write_batch(rows, metric_type=mt,
+                                     write_unaggregated=False)
+        return (time.perf_counter() - p0, ds.samples_matched - m0,
+                ds.samples_dropped - d0)
+
+    with step(f"cold pass, {DS_METRICS} metrics (the downsampling leg)"):
+        cold_s, matched, dropped = one_pass()
+    check(matched > 0.9 * DS_METRICS and dropped > 0,
+          f"cold pass matched {matched}, dropped {dropped}")
+    with step(f"warm pass, {DS_METRICS} metrics"):
+        warm_s, m2, d2 = one_pass()
+    check((m2, d2) == (matched, dropped), f"warm pass {m2}, {d2}")
+    now["t"] = t_d + 6 * MINUTE_NS
+    with step("flush into agg_1m and agg_5m (agg_flush route, K3)"):
+        flushed = coord.flush_downsampler()
+    check(flushed > 0, "the downsampler flushed nothing")
+    sub = samples[:DS_ORACLE]
+    sinks = ([], [])
+    pair = []
+    for sink in sinks:
+        pair.append(Downsampler(
+            Matcher(store, b"default", clock=lambda: t_d),
+            lambda *a, _s=sink: _s.append(a), clock=lambda: now["t"]))
+    now["t"] = t_d
+    pair[0].write_batch(sub)
+    for tags, ts, v, mt in sub:
+        pair[1].write_ref(tags, ts, v, mt)
+    check((pair[0].samples_matched, pair[0].samples_dropped)
+          == (pair[1].samples_matched, pair[1].samples_dropped),
+          "downsample oracle: counts differ")
+    for d in pair:
+        d.flush(t_d + 6 * MINUTE_NS)
+    now["t"] = t_d + 6 * MINUTE_NS
+
+    def rows(sink):
+        return sorted((m, tuple(sorted(tg.items())), tt,
+                       np.float64(v).tobytes(), str(p))
+                      for m, tg, tt, v, p in sink)
+
+    check(sinks[0] and rows(sinks[0]) == rows(sinks[1]),
+          f"downsample oracle: {len(sinks[0])} rows against "
+          f"{len(sinks[1])}")
+    agg = run_embedded(db, namespace=b"agg_1m", clock=lambda: now["t"])
+    try:
+        name = b"rollup_svc000"
+        q = urllib.parse.urlencode({
+            "query": f'{{__name__=~"{name.decode()}.*"}}',
+            "start": t_d / 1e9, "end": now["t"] / 1e9, "step": "60"})
+        code, body = _http(f"{agg.endpoint}/api/v1/query_range?{q}")
+        res = json.loads(body)["data"]["result"] if code == 200 else []
+        check(code == 200 and len(res) > 0,
+              f"aggregated {name!r} over HTTP: {code}, {len(res)} series")
+    finally:
+        agg.close()
+    _card(f"coordinator (d) downsample: {DS_METRICS} metrics against "
+          f"{DS_MAPPING + 1} mapping and {DS_ROLLUP} rollup rules: cold "
+          f"{DS_METRICS / cold_s!r} metrics/s ({cold_s!r} s), warm "
+          f"{DS_METRICS / warm_s!r} metrics/s; matched {matched}, dropped "
+          f"{dropped}; flush {flushed}; the write_ref oracle on "
+          f"{DS_ORACLE}: {len(sinks[0])} rows equal bit for bit; "
+          f"{len(res)} aggregated {name.decode()} series over HTTP")
+
+
+def _coord_compute_error(coord, t, serial) -> None:
+    """(f) One injected ComputeError on the `plan` route (the guard's
+    fault seam, dispatch_raise on every draw): sum_by_host answers 503
+    with errorType KernelFault; after guard.reset() the same request
+    answers 200 with (b)'s bytes."""
+    from m3_tpu_torch.parallel import guard
+    from m3_tpu_torch.testing import faultcomp
+
+    shape = SERVE_MIX[2]
+    url = _serve_url(coord.endpoint, t, shape)
+    guard.reset()
+    try:
+        with faultcomp.injected(faultcomp.ComputeFaultPlan(
+                seed=7, dispatch_raise=1.0, route_filter="plan")):
+            code, body = _http(url)
+    finally:
+        guard.reset()
+    err = json.loads(body)
+    check(code == 503 and err.get("errorType") == "KernelFault",
+          f"compute error answered {code}: {body[:200]!r}")
+    code2, body2 = _http(url)
+    check(code2 == 200 and body2 == serial[shape[0]],
+          f"after guard.reset(): {code2}")
+    _card(f"coordinator (f) compute error: 503 {err['error'][:80]!r}; after "
+          f"guard.reset() 200 with (b)'s bytes")
+
+
+def _clustered_coordinator(cluster: dict) -> None:
+    """(g) run_clustered(session) on phase 13's 3-node RF=3 cluster before
+    it stops: two of CLUSTER_QUERIES over HTTP equal phase 13 (b)'s
+    answers over SessionStorage on the card: their rendered bytes, else
+    within its bounds. The writes since (b) lie outside the queried
+    range."""
+    import urllib.parse
+
+    from m3_tpu_torch.coordinator import run_clustered
+    from m3_tpu_torch.query import render
+
+    h, ns = cluster["harness"], cluster["ns"]
+    start, end = cluster["range"]
+    c = run_clustered(cluster["session"], namespace=ns, clock=h.clock)
+    try:
+        for q in CLUSTER_QUERIES[:1] + CLUSTER_QUERIES[-1:]:
+            r0 = time.perf_counter()
+            code, body = _http(f"{c.endpoint}/api/v1/query_range?"
+                               + urllib.parse.urlencode(
+                                   {"query": q, "start": start / 1e9,
+                                    "end": end / 1e9, "step": "30"}))
+            http_s = time.perf_counter() - r0
+            check(code == 200, f"run_clustered {q}: {code} {body[:200]!r}")
+            want = cluster["answers"][q]
+            same = body == render.prom_matrix_bytes(want)
+            got = json.loads(body)["data"]["result"]
+            if not same:
+                _check_rendered(q, got, want)
+            _card(f"coordinator (g) run_clustered {q}: {len(got)} series in "
+                  f"{http_s!r} s over HTTP, equal to SessionStorage's "
+                  f"answer (bytes equal: {same})")
+    finally:
+        c.close()
+
+
+def _check_rendered(q, got, want) -> None:
+    """A query_range response's result list against a Block: the same
+    series in order, the same timestamps and missing cells, values within
+    q's bounds (_query_tol)."""
+    labels = [{k.decode(): v.decode() for k, v in x.pairs}
+              for x, row in zip(want.series_tags, np.asarray(want.values))
+              if np.isfinite(row).any()]
+    check([r["metric"] for r in got] == labels, f"{q}: series differ")
+    wv = np.asarray(want.values, np.float64)
+    wv = wv[np.isfinite(wv).any(axis=1)]
+    col = {tt: i for i, tt in enumerate((want.meta.times() / 1e9).tolist())}
+    for r, row in zip(got, wv):
+        gv = np.full(len(col), np.nan)
+        for tt, v in r["values"]:
+            gv[col[tt]] = float(v)
+        check(bool((np.isnan(gv) == ~np.isfinite(row)).all())
+              and bool(np.allclose(gv, row, equal_nan=True,
+                                   **_query_tol(q, row))),
+              f"{q}: values differ")
 
 
 def _check_aggregates(block, roll, blk, qs) -> None:

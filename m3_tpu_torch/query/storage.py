@@ -57,6 +57,16 @@ class LocalStorage:
         self._db.write_batch(self._namespace, list(series_ids), ts, vals,
                              tags=list(tags))
 
+    def accepts(self, ts) -> np.ndarray:
+        """Mask of the timestamps the namespace's shards take now: the
+        buffer_past/buffer_future window each shard's write checks.
+        Port-only, for DownsamplerAndWriter.write_request."""
+        opts = self._db.namespace(self._namespace).opts
+        now = self._db.clock()
+        ts = np.asarray(ts, np.int64)
+        return (ts >= now - opts.buffer_past_ns) & \
+            (ts <= now + opts.buffer_future_ns)
+
     def complete_tags(self, matchers: Sequence[Matcher], start_ns: int,
                       end_ns: int, name_only: bool = False,
                       filter_names: Sequence[bytes] = ()) -> Dict[bytes, set]:

@@ -20,7 +20,12 @@ the populations of the reference benchmark's aggregator flushes
 agg10x_planes their values and loopback_forward the local second stage
 their rollup forwards feed; hostile_rank_rows draws tiles for the flush's
 rank selection. gap_thresholds places alert thresholds where no answer
-within the compiled route's bound of the data could cross them."""
+within the compiled route's bound of the data could cross them.
+
+For the coordinator: serve_corpus builds the reference serving
+benchmark's counters (bench.py bench_query_serve_e2e) and rules_corpus
+the downsample benchmark's rule set and samples (bench.py
+_rules_corpus)."""
 
 from __future__ import annotations
 
@@ -362,3 +367,77 @@ def gap_thresholds(values: np.ndarray, k: int, rtol: float = 2e-5,
     cand = mids[half > rtol * np.abs(v[1:]) + atol]
     want = np.quantile(v, (np.arange(k) + 0.5) / k)
     return [float(cand[np.argmin(np.abs(cand - w))]) for w in want]
+
+
+def serve_corpus(n: int = 10_000, hosts: int = 200, seed: int = 61):
+    """(series dict, timestamps) of the reference's serving benchmark
+    (bench.py bench_query_serve_e2e): n Poisson(5) counters over
+    `hosts` hosts, 240 points at 10 s from 1,700,000,000 s, offset by
+    1e9 x (1 + i % 4), drawn from np.random.default_rng(seed)."""
+    s_ns = 1_000_000_000
+    rng = np.random.default_rng(seed)
+    t = 1_700_000_000 * s_ns + np.arange(240, dtype=np.int64) * 10 * s_ns
+    vals = np.cumsum(rng.poisson(5.0, (n, 240)), axis=1).astype(np.float64)
+    vals += 1e9 * (1 + np.arange(n)[:, None] % 4)
+    series = {}
+    for i in range(n):
+        series[b"bench_requests{i=%d}" % i] = {
+            "tags": {b"__name__": b"bench_requests",
+                     b"host": b"host-%03d" % (i % hosts),
+                     b"i": str(i).encode()},
+            "t": t, "v": vals[i]}
+    return series, t
+
+
+def rules_corpus(n_metrics: int, n_mapping: int, n_rollup: int,
+                 n_services: int = 500):
+    """(RuleSet, samples) of the reference's downsample benchmark
+    (bench.py _rules_corpus), in the port's metrics types: per-service
+    mapping rules on literal-prefix name globs (every seventh with a dc
+    filter, every fifth at 5m:40h), a DROP_MUST class on drop_*, and
+    rollup rules whose first op is the rollup; samples are (tags, t,
+    value, metric type) rows, gauge/counter/timer in turn, 2% drop_*."""
+    from ..metrics.aggregation import AggID, AggType
+    from ..metrics.filters import TagsFilter
+    from ..metrics.metric import MetricType
+    from ..metrics.pipeline import Op, Pipeline
+    from ..metrics.policy import DropPolicy, StoragePolicy
+    from ..metrics.rules import (MappingRuleSnapshot, RollupRuleSnapshot,
+                                 RollupTarget, Rule, RuleSet)
+
+    pol_1m = (StoragePolicy.parse("1m:40h"),)
+    pol_5m = (StoragePolicy.parse("5m:40h"),)
+    mapping = []
+    for k in range(n_mapping):
+        svc = k % n_services
+        filt = {"__name__": f"svc{svc:03d}_*"}
+        if k % 7 == 0:
+            filt["dc"] = "east" if k % 2 else "west"
+        mapping.append(Rule([MappingRuleSnapshot(
+            f"map-{k}", 0, TagsFilter(filt),
+            storage_policies=pol_5m if k % 5 == 0 else pol_1m)]))
+    mapping.append(Rule([MappingRuleSnapshot(
+        "map-drop", 0, TagsFilter({"__name__": "drop_*"}),
+        storage_policies=pol_1m, drop_policy=DropPolicy.DROP_MUST)]))
+    rollup = []
+    for k in range(n_rollup):
+        svc = (k * 3) % n_services
+        pipe = Pipeline((Op.roll(b"rollup_svc%03d" % svc, (b"dc",),
+                                 AggID.compress([AggType.SUM])),))
+        rollup.append(Rule([RollupRuleSnapshot(
+            f"roll-{k}", 0, TagsFilter({"__name__": f"svc{svc:03d}_*"}),
+            (RollupTarget(pipe, pol_1m),))]))
+    rs = RuleSet(b"default", 1, mapping, rollup)
+    types = (MetricType.GAUGE, MetricType.COUNTER, MetricType.TIMER)
+    samples = []
+    t0 = 1_700_000_000 * 1_000_000_000
+    for i in range(n_metrics):
+        if i % 50 == 49:
+            name = b"drop_%d" % i
+        else:
+            name = b"svc%03d_lat_%d" % (i % n_services, i)
+        tags = {b"__name__": name, b"host": b"h%02d" % (i % 64),
+                b"dc": b"east" if i % 2 else b"west",
+                b"endpoint": b"e%02d" % (i % 16)}
+        samples.append((tags, t0, float(i % 97) + 0.5, types[i % 3]))
+    return rs, samples

@@ -242,6 +242,59 @@ ok = ok and decode_aggregated_batch(pubs[0])[0].value == 2.0
 cs.close()
 ch.close()
 
+import socket
+import time
+import urllib.parse
+import urllib.request
+from m3_tpu_torch.coordinator import Downsampler, run_clustered, run_embedded
+from m3_tpu_torch.coordinator import promremote
+from m3_tpu_torch.coordinator.carbon_ingest import CarbonServer
+from m3_tpu_torch.index.namespace_index import NamespaceIndex
+from m3_tpu_torch.metrics.filters import TagsFilter
+from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
+from m3_tpu_torch.metrics.rules import MappingRuleSnapshot, Rule, RuleSet
+
+cnow = {"t": int(t[0])}
+cclock = lambda: cnow["t"]
+cdb = Database(ShardSet(4), clock=cclock, device="cpu")
+for cns in (b"default", b"agg"):
+    cdb.create_namespace(cns, NamespaceOptions(), index=NamespaceIndex(clock=cclock))
+ckv = MemStore()
+RuleSetStore(ckv).publish(RuleSet(b"default", 1, [Rule([MappingRuleSnapshot(
+    "all", 0, TagsFilter({"__name__": "rw*"}), 0, (pol,))])]))
+coord = run_embedded(cdb, kv_store=ckv, aggregated_namespaces={pol: b"agg"},
+                     clock=cclock, device="cpu")
+t0_ms = int(t[0]) // 10**6
+body = promremote.snappy_compress(promremote.encode_write_request(
+    [({b"__name__": b"rw", b"k": b"%d" % k},
+      [(t0_ms + 10_000 * i, float(i * k)) for i in range(12)]) for k in range(4)]))
+cnow["t"] = int(t[0]) + 120 * 10**9
+req = urllib.request.Request(coord.endpoint + "/api/v1/prom/remote/write",
+                             data=body, method="POST",
+                             headers={"Content-Type": "application/x-protobuf"})
+ok = ok and json.loads(urllib.request.urlopen(req).read())["wrote"] == 48
+qs = urllib.parse.urlencode({"query": "rate(rw[1m])", "start": int(t[6]) / 1e9,
+                             "end": int(t[11]) / 1e9, "step": "10"})
+out = json.loads(urllib.request.urlopen(
+    coord.endpoint + "/api/v1/query_range?" + qs).read())
+ok = ok and len(out["data"]["result"]) == 4
+carbon_srv = CarbonServer(coord.writer).start()
+chost, cport = carbon_srv.endpoint.rsplit(":", 1)
+with socket.create_connection((chost, int(cport))) as sock:
+    sock.sendall(b"a.b.c 1.5 %d\n" % (int(t[5]) // 10**9))
+for _ in range(200):
+    if carbon_srv.lines_ingested:
+        break
+    time.sleep(0.05)
+ok = ok and carbon_srv.lines_ingested == 1
+carbon_srv.close()
+cnow["t"] = int(t[0]) + 600 * 10**9
+ok = ok and coord.flush_downsampler() > 0
+rre = coord.rules_engine(step_ns=30 * 10**9)
+rre.add_recording(RecordingRule(b"rw:sum", "sum(rw)"))
+ok = ok and rre.evaluate(int(t[0]) + 120 * 10**9).recorded_rows > 0
+coord.close()
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
 for make in (lambda: Engine(DictStorage(series)),
@@ -251,7 +304,10 @@ for make in (lambda: Engine(DictStorage(series)),
              lambda: Session(StaticTopology(cpl.initial_placement(
                  [cpl.Instance("a", "a:1")], 4, 1))),
              lambda: ClusterHarness(1, 1, 2), lambda: make_node_server(2),
-             lambda: NodeService(fresh)):
+             lambda: NodeService(fresh), lambda: run_embedded(cdb),
+             lambda: run_clustered(cs),
+             lambda: Downsampler(Matcher(RuleSetStore(ckv), b"default"),
+                                 lambda *a: None)):
     try:
         make()
         ok = False
@@ -278,12 +334,16 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     cluster (a 3-node harness behind fault proxies, writes and a
     fetch_tagged through a Session, a query over a RemoteStorage in front
     of a FanoutStorage of a SessionStorage, a repair sweep, a placement
-    through the cluster client and a producer handler's payload), in a
+    through the cluster client and a producer handler's payload), and the
+    coordinator (run_embedded over a Database with the index, a snappy
+    protobuf remote write, a query_range over HTTP, a carbon line through
+    the listener, a downsampler flush and a rules engine round), in a
     fresh process; the Engine, the Database, the Aggregator, a
     MetricList, a BlockRetriever, a Session, a ClusterHarness, a node
-    server and a NodeService also refuse to start without a card unless
-    asked for the CPU, and a bootstrap of a database placed on the card
-    refuses to run without one."""
+    server, a NodeService, run_embedded, run_clustered and a Downsampler
+    also refuse to start without a card unless asked for the CPU, and a
+    bootstrap of a database placed on the card refuses to run without
+    one."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -323,6 +383,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from m3_tpu_torch.utils import hashing
     from m3_tpu_torch.utils.hbm import HBMBudget
     from m3_tpu_torch.aggregator import Aggregator, MetricList, MetricLists
+    from m3_tpu_torch.cluster.kv import MemStore
+    from m3_tpu_torch.coordinator import (Downsampler, run_clustered,
+                                          run_embedded)
+    from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
     from m3_tpu_torch.parallel import agg_flush
 
     placed = Db(ShardSet(4), device="cpu")
@@ -368,6 +432,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: FilesetReader(path).verify_rows(),
         lambda: BlockRetriever(pm),
         lambda: BootstrapProcess().run(placed),
+        lambda: run_embedded(Db(ShardSet(4), device="cpu")),
+        lambda: run_clustered(None),
+        lambda: Downsampler(Matcher(RuleSetStore(MemStore()), b"default"),
+                            lambda *a: None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
