@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
-durability, cluster and coordinator paths on one NVIDIA GPU.
+durability, cluster, coordinator and networked aggregation paths on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -280,9 +281,45 @@ Phases (each synchronises the device and fails the run on any error):
               4,000 metrics equal bit for bit; a rollup series over HTTP.
               (f) an injected ComputeError on
               the plan route answers 503, 200 after guard.reset()
+  15. pipeline  config #2 (the upstream docker/m3aggregator deployment)
+              over the network, every part on 127.0.0.1 in this process,
+              every number beside the card's name and power limit. (a) the
+              metadata plane: a KVServer; the coordinator's
+              Database(ShardSet(16)) on the card with the index watches the
+              namespace registry through a RemoteStore; agg_1m (1m:40h) and
+              agg_5m (5m:40h) added through the registry are served on the
+              card; a runtime option folds from KV; an HTTPJSONServer over
+              the db's NodeService: one write_batch of 10,000 samples (K3),
+              every series fetched back bit for bit, /debug/vars with the
+              guard's snapshot, 429 from a held gate. (b) two Aggregators on
+              the card, each behind a RawTCPServer and an admin sidecar, 64
+              shards split by a placement in KV (RF 1), elections and flush
+              times over RemoteStores, each flushing through a
+              ProducerHandler over a Producer of the KV topic
+              aggregated_metrics to a Consumer(M3MsgIngester) that writes 1m
+              rows to agg_1m and 5m rows to agg_5m; a collector Reporter over
+              a Matcher on KV rules and an AggregatorClient of TCPTransports
+              sends bench_counter_gauge's traffic (its 50,000 tagged metrics
+              cut to 14,000 for the phase's time: half Poisson(5) counters,
+              half N(0,1) gauges, seed 23, 30 points at 10 s on the
+              settable clock) and 5,000 batch
+              timers of 30 values (p50/p95/p99: the agg_flush route); the
+              windows close, both aggregators flush, the producers drain;
+              every stored row equals a device="cpu" Aggregator's fed the
+              same samples in process, bit for bit; samples/s, rows/s, the
+              last sample to the last row readable, the card's busy share of
+              the traced (b); then the seal (K1), 1,000 sampled series read
+              back from the sealed blocks (K2), and
+              sum_over_time(bench_cg_counter[5m]) over agg_1m on the
+              compiled route (K4 in its graph) within "compiled query
+              answers" of a device="cpu" engine. (c) a leader/follower pair
+              on one shard set at 1,000 metrics: the leader flushes a
+              window, /resign, the follower flushes the next: the stored
+              rows have no gap and no duplicate window
 
 Every kernel's launches are counted per path (slice, query, storage,
-flush, graphite, plan, aggregator, durability, cluster, coordinator;
+flush, graphite, plan, aggregator, durability, cluster, coordinator,
+pipeline;
 phase 14 (g) counts in cluster), each count set to 0 just before its
 path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
@@ -764,6 +801,10 @@ def main() -> int:
     # -- 14. the coordinator -----------------------------------------------
     for name, n in _coordinator_phase().items():
         by_path[name]["coordinator"] = n
+
+    # -- 15. config #2 over the network: KV, TCP, m3msg --------------------
+    for name, n in _pipeline_phase().items():
+        by_path[name]["pipeline"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -5075,6 +5116,643 @@ def _check_aggregates(block, roll, blk, qs) -> None:
         idx = (rank.clamp(min=1) - 1).clamp(0, FACTOR - 1)
         want = torch.where(nq > 0, srt.gather(-1, idx[..., None])[..., 0], 0.0)
         check(torch.equal(qs[..., j], want), f"quantile {q} differs")
+
+
+# Phase 15: config #2 (the docker/m3aggregator deployment) over the network.
+# bench_counter_gauge's 50,000 metrics cut to 14,000 for the phase's 120 s:
+# every untimed sample pays the pure-Python wire codec twice (6,297
+# samples/s into the aggregators on the H100's host at 20,000, PERF.md
+# §4); the 30 points at 10 s, the two policies and the draws stay.
+PIPE_METRICS, PIPE_POINTS, PIPE_SEED = 14_000, 30, 23
+PIPE_TIMERS, PIPE_TIMER_VALUES, PIPE_TIMER_SEED = 5_000, 30, 29
+PIPE_AGG_SHARDS = 64            # m3_tpu/services/config.py:111
+PIPE_TOPIC_SHARDS = 64
+PIPE_HJ_SERIES, PIPE_HJ_POINTS = 1_000, 10   # the HTTP JSON write_batch
+PIPE_READS = 1_000
+PIPE_FAILOVER_METRICS = 1_000
+PIPE_BATCH = 256                # TCPTransport entries a frame
+PIPE_WAIT_S = 120.0             # every wait's deadline
+PIPE_QUERY = "sum_over_time(bench_cg_counter[5m])"
+PIPE_POLICIES = ("1m:40h", "5m:40h")
+
+
+def _await(cond, what: str, timeout: float = PIPE_WAIT_S) -> float:
+    """Poll `cond` until it holds; fail the run past `timeout`. Returns
+    the seconds waited."""
+    t0 = time.perf_counter()
+    deadline = t0 + timeout
+    while not cond():
+        check(time.perf_counter() < deadline,
+              f"pipeline: {what} not within {timeout} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _traced():
+    """Host clock of the block and the device's busy seconds in it
+    (torch.profiler, CUDA activity only), in the dict it yields: the
+    device half of _instrumented, without its cProfile, whose per-call
+    cost would double a block that is all Python calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        yield res
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+    res["device"] = _device_seconds(trace)
+
+
+class _RowSink:
+    """A columnar flush handler keeping every emitted row's columns (a
+    piped class's rows arrive one by one through __call__)."""
+
+    def __init__(self):
+        self.groups = []
+
+    def __call__(self, mid, t, v, pol):
+        self.groups.append(([mid], np.array([t], np.int64),
+                            np.array([v], np.float64), pol))
+
+    def handle_columnar(self, groups):
+        for ids, ts, vs, pol in groups:
+            self.groups.append((list(ids), np.asarray(ts, np.int64),
+                                np.asarray(vs, np.float64), pol))
+
+    def series(self, ns_of):
+        """{(namespace, id): (times, values)} of the rows, time-sorted."""
+        out = {}
+        for ids, ts, vs, pol in self.groups:
+            ns = ns_of[str(pol)]
+            for mid, t, v in zip(ids, ts.tolist(), vs.tolist()):
+                out.setdefault((ns, mid), []).append((t, v))
+        return {k: (np.array([t for t, _ in sorted(r)], np.int64),
+                    np.array([v for _, v in sorted(r)], np.float64))
+                for k, r in out.items()}
+
+
+def _bits(v) -> bytes:
+    """f64 bit patterns, every NaN one NaN."""
+    v = np.array(v, np.float64)
+    v[np.isnan(v)] = np.nan
+    return v.tobytes()
+
+
+def _pipeline_phase() -> dict:
+    """Phase 15: config #2 over the network, every part on 127.0.0.1 in
+    this process. (a) the metadata plane: a KVServer; the coordinator's
+    Database(ShardSet(16)) on the card with the index gets a NamespaceWatch
+    over a RemoteStore; agg_1m and agg_5m are added through the registry
+    and served; a runtime option folds from KV; an HTTPJSONServer over the
+    db's NodeService (write_batch, K3; fetches back; /debug/vars; 429).
+    (b) two Aggregators on the card behind RawTCPServers and admin
+    sidecars, 64 shards by a placement in KV, elections and flush times
+    over RemoteStores, flushing through ProducerHandlers over Producers to
+    a Consumer(M3MsgIngester) into agg_1m/agg_5m; a collector Reporter
+    over KV rules and an AggregatorClient of TCPTransports sends
+    bench_counter_gauge's traffic and 5,000 batch timers; the stored rows
+    equal a device="cpu" Aggregator's fed in process; the seal (K1), 1,000
+    series read back (K2), a sum_over_time over agg_1m (K4 in the plan
+    graph). (c) failover: a leader/follower pair, /resign, no gap and no
+    duplicate window. Returns the kernels' launches over the phase (the
+    counts set to 0 just before it)."""
+    import gc
+
+    import torch
+
+    from m3_tpu_torch.cluster.kv_service import KVServer
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+    from m3_tpu_torch.parallel import compile as pcompile
+
+    pcompile.clear()
+    gc.collect()
+    gc.freeze()
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv = KVServer().start()
+    closers = [kv.close]
+    try:
+        now = {"t": 1_700_000_000 * 10**9 - (1_700_000_000 * 10**9)
+               % (300 * 10**9)}
+        db = _pipe_metadata(kv, now, closers)
+        _pipe_httpjson(db, now, closers)
+        oracle = _pipe_aggregate(kv, db, now, closers)
+        _pipe_failover(kv, db, now, closers)
+        _pipe_seal_read_query(db, now, oracle)
+    finally:
+        for close in reversed(closers):
+            close()
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    secs = time.perf_counter() - t0
+    pcompile.clear()
+    torch.cuda.empty_cache()
+    _card(f"pipeline: phase 15 in {secs!r} s, launches {launches}")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash", "window")),
+          f"phase 15 did not launch every kernel: {launches}")
+    return launches
+
+
+def _pipe_metadata(kv, now, closers):
+    """(a) 1-4: the db, its NamespaceWatch over a RemoteStore, agg_1m
+    added through the watch and agg_5m published by an admin client (the
+    watch push creates it), both on the db's device; one runtime option
+    folded from KV."""
+    import json as _json
+
+    from m3_tpu_torch.cluster.kv_service import RemoteStore
+    from m3_tpu_torch.index.namespace_index import NamespaceIndex
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.storage import runtime
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.namespace_watch import (REGISTRY_KEY,
+                                                      NamespaceWatch)
+
+    clock = lambda: now["t"]  # noqa: E731
+    db = Database(ShardSet(num_shards=16), clock=clock)
+    closers.append(db.close)
+    db.create_namespace(b"default", NamespaceOptions(),
+                        index=NamespaceIndex(clock=clock))
+    st, admin = RemoteStore(kv.endpoint), RemoteStore(kv.endpoint)
+    closers += [st.close, admin.close]
+    t0 = time.perf_counter()
+    watch = NamespaceWatch(db, st).start()
+    closers.append(watch.stop)
+    check(watch.device == db.device,
+          f"the watch runs on {watch.device}, the db on {db.device}")
+    retention = 40 * 3600 * 10**9
+    watch.add(b"agg_1m", retention_ns=retention)
+    for _ in range(8):
+        cur = admin.get(REGISTRY_KEY)
+        reg = _json.loads(cur.data)
+        reg["agg_5m"] = {"retention_ns": retention,
+                         "block_size_ns": NamespaceOptions().block_size_ns,
+                         "index_enabled": True}
+        try:
+            admin.check_and_set(REGISTRY_KEY, cur.version,
+                                _json.dumps(reg).encode())
+            break
+        except ValueError:
+            continue
+    waited = _await(lambda: b"agg_5m" in db.namespaces,
+                    "agg_5m served through the watch")
+    for ns in (b"agg_1m", b"agg_5m"):
+        n = db.namespace(ns)
+        check(n.device == db.device and n.index is not None
+              and n.opts.retention_ns == retention,
+              f"{ns!r}: device {n.device}, retention {n.opts.retention_ns}")
+    mgr = runtime.watch_kv_runtime_options(st, runtime.RuntimeOptionsManager())
+    admin.set("_kvconfig/" + runtime.CLIENT_WRITE_CONSISTENCY, b'"all"')
+    _await(lambda: mgr.get().write_consistency == "all",
+           "the runtime option folded")
+    _card(f"pipeline (a) metadata: agg_1m and agg_5m on {db.device} in "
+          f"{time.perf_counter() - t0!r} s (the watch push {waited!r} s); "
+          f"runtime write consistency {mgr.get().write_consistency!r} from "
+          f"KV; {watch.updates_applied} registry updates applied")
+    return db
+
+
+def _pipe_httpjson(db, now, closers) -> None:
+    """(a) 5: an HTTPJSONServer over the db's NodeService: one POST
+    write_batch of PIPE_HJ_SERIES x PIPE_HJ_POINTS samples (K3 routing),
+    every series fetched back over POST equal bit for bit, /debug/vars
+    with the guard's snapshot, 429 from a held gate."""
+    import base64
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.rpc import HTTPJSONServer, NodeService
+    from m3_tpu_torch.utils.health import AdmissionGate
+
+    gate = AdmissionGate(capacity=64, name="pipeline.httpjson")
+    srv = HTTPJSONServer(NodeService(db, gate=gate)).start()
+    closers.append(srv.close)
+    check(srv.device == db.device, f"HTTP JSON on {srv.device}")
+    rng = np.random.default_rng(PIPE_SEED)
+    n, w = PIPE_HJ_SERIES, PIPE_HJ_POINTS
+    ids = [b"hj.%d" % i for i in range(n)]
+    ts = now["t"] - (w - np.arange(w, dtype=np.int64)) * 10**10
+    vals = rng.standard_normal((n, w))
+
+    def post(method, body):
+        req = urllib.request.Request(f"{srv.endpoint}/{method}", method="POST",
+                                     data=_json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, _json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, _json.loads(e.read())
+
+    body = {"ns": "default",
+            "ids": [{"b64": base64.b64encode(i).decode()}
+                    for i in ids for _ in range(w)],
+            "ts": np.tile(ts, n).tolist(), "vals": vals.ravel().tolist()}
+    hash0 = ck.launch_counts()["hash"]
+    t0 = time.perf_counter()
+    code, out = post("write_batch", body)
+    write_s = time.perf_counter() - t0
+    check((code, out) == (200, {"ok": True, "r": n * w}),
+          f"HTTP JSON write_batch: {code} {out}")
+    check(ck.launch_counts()["hash"] > hash0, "write_batch did not launch K3")
+    t0 = time.perf_counter()
+    for i, sid in enumerate(ids):
+        code, out = post("fetch", {"ns": "default", "id": sid.decode(),
+                                   "start_ns": 0, "end_ns": now["t"] + 1})
+        check(code == 200 and out["r"]["t"] == ts.tolist()
+              and _bits(out["r"]["v"]) == _bits(vals[i]),
+              f"HTTP JSON fetch of {sid!r} differs")
+    fetch_s = time.perf_counter() - t0
+    with urllib.request.urlopen(srv.endpoint + "/debug/vars", timeout=60) as r:
+        dv = _json.loads(r.read())
+    check("codec.hash" in dv["compute"] and dv["metrics"],
+          f"/debug/vars compute routes {sorted(dv['compute'])}")
+    gate.admit(64)
+    try:
+        code, out = post("write", {"ns": "default", "id": "x",
+                                   "t_ns": now["t"], "value": 1.0})
+    finally:
+        gate.release(64)
+    check(code == 429 and out["kind"] == "resource_exhausted",
+          f"a held gate answered {code}")
+    _card(f"pipeline (a) HTTP JSON: write_batch of {n * w} samples in "
+          f"{write_s!r} s ({len(_json.dumps(body))} bytes); {n} fetches back "
+          f"bit for bit in {fetch_s!r} s; /debug/vars routes "
+          f"{sorted(dv['compute'])}; a held gate 429")
+
+
+def _pipe_rules(store):
+    """Two mapping rules published through the KV RuleSetStore: the
+    counters and gauges to both policies with their default aggregations,
+    the timers to both policies with p50/p95/p99 (config #4's)."""
+    from m3_tpu_torch.metrics import aggregation as magg
+    from m3_tpu_torch.metrics.filters import TagsFilter
+    from m3_tpu_torch.metrics.matcher import RuleSetStore
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.rules import MappingRuleSnapshot, Rule, RuleSet
+
+    pols = tuple(StoragePolicy.parse(p) for p in PIPE_POLICIES)
+    qs = magg.AggID.compress([magg.AggType.P50, magg.AggType.P95,
+                              magg.AggType.P99])
+    RuleSetStore(store).publish(RuleSet(b"default", 1, mapping_rules=[
+        Rule([MappingRuleSnapshot("cg", 0, TagsFilter(
+            {"__name__": "bench_cg_*"}), 0, pols)]),
+        Rule([MappingRuleSnapshot("timers", 0, TagsFilter(
+            {"__name__": "bench_timer"}), qs, pols)])]))
+    return pols
+
+
+def _pipe_traffic():
+    """bench_counter_gauge's draws (seed 23: Poisson(5) counters, N(0,1)
+    gauges, 30 points) over tagged ids, and PIPE_TIMERS batch timers of
+    PIPE_TIMER_VALUES lognormal values, timer i sent at point i % 30."""
+    from m3_tpu_torch.metrics import id as metric_id
+
+    n = PIPE_METRICS
+    rng = np.random.default_rng(PIPE_SEED)
+    cvals = rng.poisson(5.0, (n // 2, PIPE_POINTS)).astype(np.int64)
+    gvals = rng.standard_normal((n - n // 2, PIPE_POINTS))
+    cids = [metric_id.encode(b"bench_cg_counter", {b"instance": b"%d" % i})
+            for i in range(n // 2)]
+    gids = [metric_id.encode(b"bench_cg_gauge", {b"instance": b"%d" % i})
+            for i in range(n - n // 2)]
+    trng = np.random.default_rng(PIPE_TIMER_SEED)
+    tvals = trng.lognormal(3.0, 1.0, (PIPE_TIMERS, PIPE_TIMER_VALUES))
+    tids = [metric_id.encode(b"bench_timer", {b"instance": b"%d" % i})
+            for i in range(PIPE_TIMERS)]
+    return cids, cvals, gids, gvals, tids, tvals
+
+
+def _pipe_aggregate(kv, db, now, closers):
+    """(b) The aggregation pipeline over TCP and m3msg. Returns the
+    oracle's rows {(namespace, id): (times, values)}."""
+    from m3_tpu_torch.aggregator import (Aggregator, AggregatorClient,
+                                         ElectionManager, FlushTimesManager,
+                                         ProducerHandler)
+    from m3_tpu_torch.aggregator.server import (HTTPAdminServer, RawTCPServer,
+                                                TCPTransport)
+    from m3_tpu_torch.cluster.kv_service import RemoteStore
+    from m3_tpu_torch.cluster.placement import Instance, PlacementService
+    from m3_tpu_torch.cluster.services import LeaderService
+    from m3_tpu_torch.collector import Reporter
+    from m3_tpu_torch.coordinator.ingest import M3MsgIngester
+    from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
+    from m3_tpu_torch.metrics.metric import MetricUnion
+    from m3_tpu_torch.msg import (Consumer, ConsumerService, Producer, Topic,
+                                  TopicService)
+    from m3_tpu_torch.query.storage import LocalStorage
+
+    clock = lambda: now["t"]  # noqa: E731
+    t_start = now["t"]
+    admin = RemoteStore(kv.endpoint)
+    closers.append(admin.close)
+    pols = _pipe_rules(admin)
+    ns_of = {str(p): ns for p, ns in zip(pols, (b"agg_1m", b"agg_5m"))}
+    storages = {p: LocalStorage(db, ns) for p, ns in zip(
+        pols, (b"agg_1m", b"agg_5m"))}
+    ingester = M3MsgIngester(storages.get)
+    consumer = Consumer(ingester).start()
+    closers.append(consumer.close)
+    TopicService(admin).upsert(Topic("aggregated_metrics", PIPE_TOPIC_SHARDS,
+                                     (ConsumerService("coordinator"),)))
+    PlacementService(admin, "_placement/coordinator").init(
+        [Instance("coord0", consumer.endpoint)], PIPE_TOPIC_SHARDS, 1)
+    aggs, servers, producers = {}, {}, []
+    for iid in ("agg0", "agg1"):
+        st = RemoteStore(kv.endpoint)
+        closers.append(st.close)
+        topic = TopicService(st).get("aggregated_metrics")
+        coord_pl = PlacementService(st, "_placement/coordinator").get()
+        prod = Producer(topic, {"coordinator": lambda p=coord_pl: p},
+                        retry_delay_s=0.2)
+        closers.append(prod.close)
+        producers.append(prod)
+        agg = Aggregator(num_shards=PIPE_AGG_SHARDS, clock=clock,
+                         flush_handler=ProducerHandler(prod, topic.num_shards),
+                         election=ElectionManager(LeaderService(
+                             st, f"m3aggregator/{iid}", iid, clock=clock)),
+                         flush_times=FlushTimesManager(st, iid))
+        raw, side = RawTCPServer(agg).start(), HTTPAdminServer(agg).start()
+        closers += [raw.close, side.close]
+        check(raw.device == side.device == agg.device == db.device,
+              f"aggregator on {agg.device}, its servers on {raw.device}")
+        aggs[iid], servers[iid] = agg, (raw, side)
+    psvc = PlacementService(admin, "_placement/m3aggregator")
+    agg_pl = psvc.init([Instance(iid, servers[iid][0].endpoint)
+                        for iid in aggs], PIPE_AGG_SHARDS, 1)
+    for iid, agg in aggs.items():
+        agg.assign_shards(agg_pl.instances[iid].shard_ids())
+    placement = {"p": psvc.get()}
+    transports = {iid: TCPTransport(placement["p"].instances[iid].endpoint,
+                                    batch_size=PIPE_BATCH) for iid in aggs}
+    for tr in transports.values():
+        closers.append(tr.close)
+    sender_kv = RemoteStore(kv.endpoint)
+    closers.append(sender_kv.close)
+    matcher = Matcher(RuleSetStore(sender_kv), b"default", clock=clock)
+    rep = Reporter(matcher, AggregatorClient(
+        PIPE_AGG_SHARDS, lambda: placement["p"], transports))
+    oracle_sink = _RowSink()
+    oracle = Aggregator(num_shards=PIPE_AGG_SHARDS, clock=clock,
+                        flush_handler=oracle_sink, device="cpu")
+    cids, cvals, gids, gvals, tids, tvals = _pipe_traffic()
+    md_cg = matcher.match(cids[0]).for_existing_id
+    md_t = matcher.match(tids[0]).for_existing_id
+    raws = [servers[iid][0] for iid in aggs]
+
+    def received():
+        return sum(r.frames + r.errors + r.shed for r in raws)
+
+    sent, oracle_s = 0, 0.0
+    with _traced() as trace:
+        t_send = time.perf_counter()
+        for k in range(PIPE_POINTS):
+            now["t"] = t_start + k * 10**10
+            for mid, v in zip(cids, cvals[:, k].tolist()):
+                rep.report_counter(mid, v)
+            for mid, v in zip(gids, gvals[:, k].tolist()):
+                rep.report_gauge(mid, v)
+            timers = range(k, PIPE_TIMERS, PIPE_POINTS)
+            for i in timers:
+                rep.report_batch_timer(tids[i], tvals[i].tolist())
+            for tr in transports.values():
+                check(tr.flush(), "a TCPTransport flush failed")
+            sent += len(cids) + len(gids) + len(timers)
+            o0 = time.perf_counter()
+            oracle.add_untimed_batch(
+                [MetricUnion.counter(m, v)
+                 for m, v in zip(cids, cvals[:, k].tolist())]
+                + [MetricUnion.gauge(m, v)
+                   for m, v in zip(gids, gvals[:, k].tolist())], md_cg)
+            oracle.add_untimed_batch(
+                [MetricUnion.batch_timer(tids[i], tvals[i].tolist())
+                 for i in timers], md_t)
+            oracle_s += time.perf_counter() - o0
+            _await(lambda n=sent: received() >= n,
+                   f"point {k}: {sent} samples at the aggregators")
+        t_last = time.perf_counter()
+        send_s = t_last - t_send - oracle_s
+        errors = sum(r.errors + r.shed for r in raws)
+        check(errors == 0 and rep.reported == sent,
+              f"ingest: {errors} errors or shed, reported {rep.reported}")
+        now["t"] = t_start + 300 * 10**9
+        t_flush = time.perf_counter()
+        flushed = sum(agg.flush() for agg in aggs.values())
+        flush_s = time.perf_counter() - t_flush
+        rows = 6 * PIPE_METRICS + 2 * 3 * PIPE_TIMERS
+        _await(lambda: all(p.unacked() == 0 for p in producers)
+               and ingester.ingested >= rows, "the m3msg delivery")
+        t_stored = time.perf_counter()
+    check(all(a._election.is_leader() for a in aggs.values()),
+          "an aggregator did not lead its shard set")
+    oracle.flush()
+    want = oracle_sink.series(ns_of)
+    # At least once: a redelivered payload writes its rows again and
+    # storage keeps one; the stored rows are what is compared.
+    check(rows == sum(len(t) for t, _ in want.values()),
+          f"the oracle flushed {sum(len(t) for t, _ in want.values())} rows, "
+          f"not {rows}")
+    t0 = time.perf_counter()
+    for (ns, mid), (wt, wv) in want.items():
+        gt, gv = db.read(ns, mid, 0, 2**62)
+        if gt.tobytes() != wt.tobytes() or _bits(gv) != _bits(wv):
+            check(False, f"{ns!r} {mid!r}: stored rows differ from the "
+                         f"oracle's ({gt.tolist()}, {gv.tolist()} against "
+                         f"{wt.tolist()}, {wv.tolist()})")
+    compare_s = time.perf_counter() - t0
+    dev = trace["device"]
+    busy = ("not measured (no device time in the trace)" if dev is None
+            else f"{dev * 1e3!r} ms ({dev / trace['wall'] * 100!r}% of "
+                 f"{trace['wall']!r} s)")
+    frames = {iid: servers[iid][0].frames for iid in aggs}
+    _card(f"pipeline (b) config #2 over TCP and m3msg: {PIPE_METRICS} metrics "
+          f"x {PIPE_POINTS} points and {PIPE_TIMERS} batch timers of "
+          f"{PIPE_TIMER_VALUES} ({sent} samples, records by instance "
+          f"{frames}) from the Reporter into 2 aggregators in {send_s!r} s: "
+          f"{sent / send_s!r} samples/s (the in-process oracle's adds "
+          f"{oracle_s!r} s excluded); flush {flush_s!r} s ({flushed} windows), "
+          f"{rows} rows flush to stored in {t_stored - t_flush!r} s: "
+          f"{rows / (t_stored - t_flush)!r} rows/s; last sample to last row "
+          f"readable {t_stored - t_last!r} s; card busy {busy}; "
+          f"{sum(a._flush_handler.publishes for a in aggs.values())} m3msg "
+          f"publishes, {ingester.ingested} rows ingested, "
+          f"{consumer.duplicates_dropped} duplicate deliveries dropped")
+    _card(f"pipeline (b) every stored row of {len(want)} series equals the "
+          f"device=\"cpu\" Aggregator's bit for bit ({compare_s!r} s)")
+    return want
+
+
+def _pipe_failover(kv, db, now, closers) -> None:
+    """(c) A leader and a follower on one shard set (RF 2 over 64 shards,
+    both fed every sample over TCP), elections and flush times over
+    RemoteStores, flushing through m3msg into agg_1m: the leader flushes
+    one window and resigns over /resign, the follower flushes the next;
+    the stored rows equal a device="cpu" Aggregator's (every window once)."""
+    import json as _json
+    import urllib.request
+
+    from m3_tpu_torch.aggregator import (Aggregator, AggregatorClient,
+                                         ElectionManager, FlushTimesManager,
+                                         ProducerHandler)
+    from m3_tpu_torch.aggregator.server import (HTTPAdminServer, RawTCPServer,
+                                                TCPTransport)
+    from m3_tpu_torch.cluster.kv_service import RemoteStore
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.cluster.services import LeaderService
+    from m3_tpu_torch.coordinator.ingest import M3MsgIngester
+    from m3_tpu_torch.metrics import id as metric_id
+    from m3_tpu_torch.metrics.metadata import (Metadata, PipelineMetadata,
+                                               StagedMetadata)
+    from m3_tpu_torch.metrics.metric import MetricUnion
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.msg import Consumer, ConsumerService, Producer, Topic
+    from m3_tpu_torch.query.storage import LocalStorage
+
+    clock = lambda: now["t"]  # noqa: E731
+    pol = StoragePolicy.parse(PIPE_POLICIES[0])
+    md = (StagedMetadata(0, False, Metadata((PipelineMetadata(0, (pol,)),))),)
+    ingester = M3MsgIngester({pol: LocalStorage(db, b"agg_1m")}.get)
+    consumer = Consumer(ingester).start()
+    closers.append(consumer.close)
+    cpl = initial_placement([Instance("coord0", consumer.endpoint)],
+                            PIPE_TOPIC_SHARDS, 1)
+    topic = Topic("aggregated_metrics", PIPE_TOPIC_SHARDS,
+                  (ConsumerService("coordinator"),))
+    aggs, raws, producers = {}, {}, []
+    for iid in ("leader", "follower"):
+        st = RemoteStore(kv.endpoint)
+        closers.append(st.close)
+        prod = Producer(topic, {"coordinator": lambda: cpl}, retry_delay_s=0.2)
+        closers.append(prod.close)
+        producers.append(prod)
+        aggs[iid] = Aggregator(
+            num_shards=PIPE_AGG_SHARDS, clock=clock,
+            flush_handler=ProducerHandler(prod, PIPE_TOPIC_SHARDS),
+            election=ElectionManager(LeaderService(
+                st, "m3aggregator/failover", iid, clock=clock)),
+            flush_times=FlushTimesManager(st, "failover"))
+        raws[iid] = RawTCPServer(aggs[iid]).start()
+        closers.append(raws[iid].close)
+    side = HTTPAdminServer(aggs["leader"]).start()
+    closers.append(side.close)
+    agg_pl = initial_placement([Instance(i, raws[i].endpoint) for i in aggs],
+                               PIPE_AGG_SHARDS, 2)
+    trs = {i: TCPTransport(raws[i].endpoint, batch_size=PIPE_BATCH)
+           for i in aggs}
+    for tr in trs.values():
+        closers.append(tr.close)
+    client = AggregatorClient(PIPE_AGG_SHARDS, lambda: agg_pl, trs)
+    oracle_sink = _RowSink()
+    oracle = Aggregator(num_shards=PIPE_AGG_SHARDS, clock=clock,
+                        flush_handler=oracle_sink, device="cpu")
+    n = PIPE_FAILOVER_METRICS
+    ids = [metric_id.encode(b"bench_failover", {b"instance": b"%d" % i})
+           for i in range(n)]
+    rng = np.random.default_rng(PIPE_SEED + 1)
+    t_start = now["t"]
+    sent = [0]
+
+    def window(w):
+        now["t"] = t_start + w * 60 * 10**9
+        vals = rng.poisson(5.0, n).tolist()
+        for mid, v in zip(ids, vals):
+            check(client.write_untimed_counter(mid, v, md), "undelivered")
+        for tr in trs.values():
+            check(tr.flush(), "a TCPTransport flush failed")
+        oracle.add_untimed_batch([MetricUnion.counter(m, v)
+                                  for m, v in zip(ids, vals)], md)
+        sent[0] += 2 * n
+        _await(lambda: sum(r.frames for r in raws.values()) == sent[0],
+               f"failover window {w} at both instances")
+
+    def status():
+        with urllib.request.urlopen(side.endpoint + "/status",
+                                    timeout=60) as r:
+            return _json.loads(r.read())["status"]["flushStatus"]
+
+    window(0)
+    now["t"] = t_start + 60 * 10**9
+    aggs["leader"].flush()
+    aggs["follower"].flush()
+    check(status() == {"electionState": "leader", "canLead": True},
+          f"the leader's status {status()}")
+    window(1)
+    req = urllib.request.Request(side.endpoint + "/resign", data=b"",
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        check(_json.loads(r.read()) == {"state": "OK"}, "/resign")
+    check(status()["electionState"] == "follower", f"after /resign {status()}")
+    now["t"] = t_start + 120 * 10**9
+    aggs["follower"].flush()
+    aggs["leader"].flush()
+    check(aggs["follower"]._election.is_leader()
+          and not aggs["leader"]._election.is_leader(),
+          "the follower did not take over the flush")
+    _await(lambda: all(p.unacked() == 0 for p in producers)
+           and ingester.ingested >= 2 * n, "the failover's m3msg delivery")
+    oracle.flush()
+    want = oracle_sink.series({str(pol): b"agg_1m"})
+    check(sum(len(t) for t, _ in want.values()) == 2 * n,
+          "the failover oracle's rows")
+    for (ns, mid), (wt, wv) in want.items():
+        gt, gv = db.read(ns, mid, 0, 2**62)
+        check(gt.tobytes() == wt.tobytes() and _bits(gv) == _bits(wv),
+              f"failover: {mid!r} stored {gt.tolist()} against "
+              f"{wt.tolist()}")
+    _card(f"pipeline (c) failover: {n} metrics, leader flushed window 1, "
+          f"/resign, the follower flushed window 2; {ingester.ingested} "
+          f"stored rows, no gap and no duplicate window")
+
+
+def _pipe_seal_read_query(db, now, want) -> None:
+    """(b) The seal of agg_1m and agg_5m (K1), PIPE_READS sampled series
+    read back from the sealed blocks equal to the oracle (K2), and
+    PIPE_QUERY over agg_1m on the plan route (K4 inside its graph) within
+    "compiled query answers" of a device="cpu" engine."""
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.query.storage import LocalStorage
+
+    step = _Steps("pipeline (b)")
+    t_end = max(int(t[-1]) for t, _ in want.values())
+    now["t"] = t_end - t_end % BLOCK_NS + BLOCK_NS + 11 * MINUTE_NS
+    with step("tick: seal agg_1m and agg_5m (K1)"):
+        sealed = db.tick()["sealed"]
+    check(sealed >= 32, f"tick sealed {sealed} blocks")
+    keys = sorted(want)
+    pick = np.random.default_rng(PIPE_SEED).choice(len(keys), PIPE_READS,
+                                                   replace=False)
+    with step(f"{PIPE_READS} series read back from the sealed blocks (K2)"):
+        for i in pick.tolist():
+            ns, mid = keys[i]
+            gt, gv = db.read(ns, mid, 0, 2**62)
+            wt, wv = want[keys[i]]
+            check(gt.tobytes() == wt.tobytes() and _bits(gv) == _bits(wv),
+                  f"sealed {ns!r} {mid!r} differs from the oracle")
+    start = min(int(t[0]) for t, _ in want.values())
+    end = start + 4 * MINUTE_NS
+    card = Engine(LocalStorage(db, b"agg_1m"))
+    with step(f"{PIPE_QUERY} over agg_1m (plan route, K4)"):
+        blk = card.execute_range(PIPE_QUERY, start, end, MINUTE_NS)
+    route = card.last_route()
+    check(route["route"] == "compiled", f"{PIPE_QUERY}: route {route}")
+    ref = Engine(LocalStorage(db, b"agg_1m"), device="cpu").execute_range(
+        PIPE_QUERY, start, end, MINUTE_NS)
+    check(blk.values.shape == (PIPE_METRICS // 2, 5),
+          f"{PIPE_QUERY}: shape {blk.values.shape}")
+    err = _check_plan(PIPE_QUERY, blk, ref, "agg_1m against the CPU")
+    _card(f"pipeline (b) seal {sealed} blocks; {PIPE_READS} sealed series "
+          f"equal the oracle; {PIPE_QUERY} over agg_1m compiled, "
+          f"{blk.values.shape}, within the compiled bounds of the CPU "
+          f"engine (max rel {err!r})")
 
 
 if __name__ == "__main__":

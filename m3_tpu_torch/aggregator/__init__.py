@@ -8,22 +8,26 @@ host-exact f64 moments and one device call for the timer quantile
 ordering (list.py emit_batch over parallel/agg_flush.py)."""
 
 from .aggregator import Aggregator, AggregatorShard, ForwardedWriter
+from .client import AggregatorClient
 from .election import ElectionManager, ElectionState
 from .elem import Elem, ElemKey
 from .entry import Entry, MetricMap, RateLimiter
 from .flush import FlushManager, FlushTimesManager
-from .handler import (AggregatedMetric, BlackholeHandler, CaptureHandler,
-                      Handler, ProducerHandler, decode_aggregated,
+from .handler import (AggregatedMetric, BlackholeHandler, BroadcastHandler,
+                      CallbackHandler, CaptureHandler, FileHandler, Handler,
+                      LoggingHandler, ProducerHandler, decode_aggregated,
                       decode_aggregated_batch)
 from .list import (FlushBatch, MetricList, MetricLists, batched_reduce,
                    emit_batch, reduce_and_emit, reduce_and_emit_ref)
 
 __all__ = [
-    "AggregatedMetric", "Aggregator", "AggregatorShard", "BlackholeHandler",
+    "AggregatedMetric", "Aggregator", "AggregatorClient", "AggregatorShard",
+    "BlackholeHandler", "BroadcastHandler", "CallbackHandler",
     "CaptureHandler", "Elem", "ElemKey", "ElectionManager", "ElectionState",
-    "Entry", "FlushBatch", "FlushManager", "FlushTimesManager",
-    "ForwardedWriter", "Handler", "MetricList",
-    "MetricLists", "MetricMap", "ProducerHandler", "RateLimiter",
-    "batched_reduce", "decode_aggregated", "decode_aggregated_batch",
-    "emit_batch", "reduce_and_emit", "reduce_and_emit_ref",
+    "Entry", "FileHandler", "FlushBatch", "FlushManager",
+    "FlushTimesManager", "ForwardedWriter", "Handler", "LoggingHandler",
+    "MetricList", "MetricLists", "MetricMap", "ProducerHandler",
+    "RateLimiter", "batched_reduce", "decode_aggregated",
+    "decode_aggregated_batch", "emit_batch", "reduce_and_emit",
+    "reduce_and_emit_ref",
 ]

@@ -1,18 +1,19 @@
-"""Flush output handlers (reference: src/aggregator/aggregator/handler/ —
-blackhole, capture).
+"""Flush output handlers (host copy of m3_tpu/aggregator/handler.py;
+reference: src/aggregator/aggregator/handler/ — blackhole, logging,
+broadcast, protobuf->m3msg producer handler.go:38).
 
 A handler receives fully-aggregated datapoints (id, timestamp, value,
 storage policy), one at a time or as one flush round's columnar groups.
-
-Host copy of the handler base, BlackholeHandler, CaptureHandler and
-ProducerHandler of m3_tpu/aggregator/handler.py, with the ingester's
-decode_aggregated(_batch): the producer handler publishes the wire
-codec's payloads onto any object with publish(shard, payload) (the m3msg
-producer of the reference; the port's msg/ tier is later work)."""
+The production path publishes them onto the m3msg producer (msg/) for the
+coordinator's ingester to consume; tests use the capture/blackhole
+handlers. Handlers are host code: the columns they receive are numpy, and
+only numpy reaches the wire."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import logging
+import os
+from typing import Callable, List, NamedTuple, Sequence
 
 from ..metrics.policy import StoragePolicy
 from ..utils.limits import Backpressure
@@ -68,6 +69,64 @@ class CaptureHandler(Handler):
 
     def by_id(self, metric_id: bytes) -> List[AggregatedMetric]:
         return [m for m in self.metrics if m.id == metric_id]
+
+
+class FileHandler(Handler):
+    """Appends one durable line per aggregated datapoint:
+    `id<TAB>time_nanos<TAB>value<TAB>policy`. Each line is flushed+fsynced
+    before handle() returns, so datapoints a leader emitted survive a
+    SIGKILL — what lets a failover drill assert exactly-once flushing
+    across a leader crash (the durable analog of handler/logging.go for
+    multi-process tests)."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "ab", buffering=0)
+
+    def handle(self, metric: AggregatedMetric):
+        self._f.write(b"%s\t%d\t%r\t%s\n" % (
+            metric.id, metric.time_nanos, metric.value,
+            str(metric.storage_policy).encode()))
+        os.fsync(self._f.fileno())
+
+    def close(self):
+        self._f.close()
+
+
+class LoggingHandler(Handler):
+    """handler/logging.go"""
+
+    def __init__(self, logger=None):
+        self._log = logger or logging.getLogger("m3_tpu_torch.aggregator.flush")
+
+    def handle(self, metric: AggregatedMetric):
+        self._log.info("flush %s@%d=%g (%s)", metric.id, metric.time_nanos,
+                       metric.value, metric.storage_policy)
+
+
+class BroadcastHandler(Handler):
+    """Fan out to several handlers (handler/broadcast.go)."""
+
+    def __init__(self, handlers: Sequence[Handler]):
+        self._handlers = list(handlers)
+
+    def handle(self, metric: AggregatedMetric):
+        for h in self._handlers:
+            h.handle(metric)
+
+    def handle_columnar(self, groups):
+        for h in self._handlers:
+            h.handle_columnar(groups)
+
+
+class CallbackHandler(Handler):
+    """Bridges to an arbitrary callable (used by the coordinator downsampler's
+    flush handler, src/cmd/services/m3coordinator/downsample/flush_handler.go)."""
+
+    def __init__(self, fn: Callable[[AggregatedMetric], None]):
+        self._fn = fn
+
+    def handle(self, metric: AggregatedMetric):
+        self._fn(metric)
 
 
 class ProducerHandler(Handler):

@@ -3,12 +3,11 @@
 client.go Client + the etcd-backed configservice client
 src/cluster/etcd/client.go — Services(), KV(), Store(namespace)).
 
-An injected store (in-process setups) yields every cluster facility with
+One KV service endpoint (a RemoteStore over cluster/kv_service.py) or an
+injected store (in-process setups) yields every cluster facility with
 consistent key namespacing: the versioned KV store, zone/env-scoped
 sub-stores, service discovery + heartbeats, leader elections and
-placement services. The reference's endpoint form reaches a KV service
-over the wire (cluster/kv_service.py), which the port does not have yet:
-ClusterClient(endpoint=...) raises KVServiceUnsupported."""
+placement services. Host code with no device."""
 
 from __future__ import annotations
 
@@ -17,11 +16,6 @@ from typing import Callable, Dict, List, Optional
 
 from .placement import PlacementService
 from .services import HeartbeatService, LeaderService, Services
-
-
-class KVServiceUnsupported(NotImplementedError):
-    """The KV service client (cluster/kv_service.py RemoteStore) is not
-    ported yet (ROADMAP A13.3): pass an in-process store."""
 
 
 class PrefixStore:
@@ -87,19 +81,19 @@ class PrefixStore:
 class ClusterClient:
     """client.go Client: the composed entrypoint.
 
-    Construct from an existing store (embedded/in-process); the KV
-    service endpoint form (cross-process, the etcd-analog deployment)
-    waits for the KV service."""
+    Construct from a KV service endpoint (cross-process, the etcd-analog
+    deployment) or from an existing store (embedded/in-process)."""
 
     def __init__(self, endpoint: str = "", store=None, zone: str = "",
                  env: str = ""):
         if (store is None) == (not endpoint):
             raise ValueError("exactly one of endpoint/store required")
+        self._owns_store = store is None
         if store is None:
-            raise KVServiceUnsupported(
-                "ClusterClient(endpoint=...) needs the KV service client "
-                "(cluster/kv_service.py), which m3_tpu_torch does not have "
-                "yet (ROADMAP A13.3); pass store=")
+            from .kv_service import RemoteStore
+
+            store = RemoteStore(endpoint)
+        self._root = store
         scope = "/".join(p for p in (zone, env) if p)
         self._store = PrefixStore(store, scope) if scope else store
         self._services: Optional[Services] = None
@@ -135,5 +129,10 @@ class ClusterClient:
                              lease_ttl_ns=lease_ttl_ns, clock=clock)
 
     def close(self):
-        """Nothing to close: the injected store may be shared with other
-        clients (the reference closes only a store it constructed)."""
+        """Closes the store only if this client constructed it — an
+        injected store may be shared with other clients."""
+        if not self._owns_store:
+            return
+        close = getattr(self._root, "close", None)
+        if close is not None:
+            close()

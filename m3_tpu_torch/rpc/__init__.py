@@ -4,6 +4,7 @@ src/dbnode/network/server/tchannelthrift).
 Length-prefixed binary frames over TCP; node service method parity with
 the thrift `Node` service IDL (src/dbnode/generated/thrift/rpc.thrift)."""
 
+from .httpjson import HTTPJSONServer
 from .node_server import NodeServer, NodeService, RPCError
 from .wire import (
     WireTruncated,
@@ -17,6 +18,7 @@ from .wire import (
 )
 
 __all__ = [
+    "HTTPJSONServer",
     "NodeServer",
     "NodeService",
     "RPCError",

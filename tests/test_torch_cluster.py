@@ -19,8 +19,8 @@ from m3_tpu.cluster import topology as jtopo
 from m3_tpu.cluster.client import ClusterClient as JClusterClient
 from m3_tpu_torch.cluster import kv, placement as pl, services as svc
 from m3_tpu_torch.cluster import topology as topo
-from m3_tpu_torch.cluster.client import (ClusterClient, KVServiceUnsupported,
-                                         PrefixStore)
+from m3_tpu_torch.cluster.client import ClusterClient, PrefixStore
+from m3_tpu_torch.cluster.kv_service import KVServer
 
 RF = 3
 
@@ -268,8 +268,26 @@ def test_cluster_client_scopes_like_the_reference():
     p.set("y", b"3")
     p.off_change("y", seen.append)
     assert seen == ["y", "y"]
-    with pytest.raises(KVServiceUnsupported, match="A13.3"):
-        ClusterClient(endpoint="127.0.0.1:1")
+    # The endpoint form: the same calls through a KV service give the
+    # same keys and values as the injected store.
+    srv = KVServer().start()
+    try:
+        rc = ClusterClient(endpoint=srv.endpoint, zone="z1", env="prod")
+        rc.placement_service().init(
+            [pl.Instance(f"i{k}", f"h{k}:1") for k in range(3)], 4, RF)
+        rc.store("ns").set("x", b"1")
+        rc.kv().set("y", b"2")
+        rc.services().advertise("svc", svc.ServiceInstance("a", "h:1"))
+        assert rc.leader_service("e", "me").campaign()
+        assert srv.store.keys() == jstore.keys()
+        for k in srv.store.keys():
+            assert srv.store.get(k).data == jstore.get(k).data or k.startswith(
+                ("z1/prod/_hb/", "z1/prod/_leader/"))
+        rc.close()
+    finally:
+        srv.close()
     with pytest.raises(ValueError):
         ClusterClient()
+    with pytest.raises(ValueError):
+        ClusterClient(endpoint="127.0.0.1:1", store=store)
     c.close()

@@ -295,8 +295,76 @@ rre.add_recording(RecordingRule(b"rw:sum", "sum(rw)"))
 ok = ok and rre.evaluate(int(t[0]) + 120 * 10**9).recorded_rows > 0
 coord.close()
 
+import json as _json
+from m3_tpu_torch.aggregator import AggregatorClient, ProducerHandler
+from m3_tpu_torch.aggregator.server import HTTPAdminServer, RawTCPServer, TCPTransport
+from m3_tpu_torch.cluster.client import ClusterClient
+from m3_tpu_torch.cluster.kv_service import KVServer, RemoteStore
+from m3_tpu_torch.collector import Reporter
+from m3_tpu_torch.coordinator.ingest import M3MsgIngester
+from m3_tpu_torch.metrics import id as metric_id
+from m3_tpu_torch.msg import Consumer, ConsumerService, Producer, Topic
+from m3_tpu_torch.rpc import HTTPJSONServer
+from m3_tpu_torch.storage.namespace_watch import NamespaceWatch
+from m3_tpu_torch.storage.runtime import RuntimeOptionsManager, watch_kv_runtime_options
+from m3_tpu_torch.testing.cluster import SettableClock
+
+kvsrv = KVServer().start()
+pclock = SettableClock(int(t[0]) - int(t[0]) % (60 * 10**9))
+pdb = Database(ShardSet(4), clock=pclock, device="cpu")
+pst = RemoteStore(kvsrv.endpoint)
+watch = NamespaceWatch(pdb, pst).start()
+watch.add(b"agg", retention_ns=40 * 3600 * 10**9, index_enabled=False)
+mgr = watch_kv_runtime_options(pst, RuntimeOptionsManager())
+ClusterClient(endpoint=kvsrv.endpoint).kv().set("_kvconfig/client-write-consistency-level", b'"all"')
+for _ in range(500):
+    if mgr.get().write_consistency == "all":
+        break
+    time.sleep(0.01)
+ok = ok and mgr.get().write_consistency == "all" and b"agg" in pdb.namespaces
+hj = HTTPJSONServer(NodeService(pdb, device="cpu")).start()
+hreq = urllib.request.Request(hj.endpoint + "/write_batch", method="POST", data=_json.dumps(
+    {"ns": "agg", "ids": [{"b64": "YQ=="}], "ts": [pclock()], "vals": [2.5]}).encode())
+ok = ok and _json.loads(urllib.request.urlopen(hreq).read())["r"] == 1
+hj.close()
+consumer = Consumer(M3MsgIngester(lambda p: LocalStorage(pdb, b"agg"))).start()
+cpl0 = cpl.initial_placement([cpl.Instance("c", consumer.endpoint)], 4, 1)
+prod = Producer(Topic("aggregated_metrics", 4, (ConsumerService("c"),)),
+                {"c": lambda: cpl0}, retry_delay_s=0.05)
+pagg = Aggregator(num_shards=8, clock=pclock, flush_handler=ProducerHandler(prod, 4),
+                  device="cpu")
+rsrv = RawTCPServer(pagg).start()
+asrv = HTTPAdminServer(pagg).start()
+tr = TCPTransport(rsrv.endpoint)
+rep = Reporter(Matcher(RuleSetStore(ckv), b"default", clock=pclock),
+               AggregatorClient(8, lambda: cpl.initial_placement(
+                   [cpl.Instance("a", "a:1")], 8, 1), {"a": tr}))
+rw_id = metric_id.encode(b"rw", {b"k": b"1"})
+for k in range(3):
+    ok = ok and rep.report_counter(rw_id, k + 1)
+ok = ok and tr.flush()
+for _ in range(500):
+    if rsrv.frames == 3:
+        break
+    time.sleep(0.01)
+pclock.advance(60 * 10**9)
+ok = ok and pagg.flush() == 1
+for _ in range(500):
+    if prod.unacked() == 0:
+        break
+    time.sleep(0.01)
+ok = ok and pdb.read(b"agg", rw_id, 0, 2**62)[1].tolist() == [6.0]
+tr.close()
+for closer in (prod.close, consumer.close, rsrv.close, asrv.close, pst.close,
+               kvsrv.close):
+    closer()
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
+cagg = Aggregator(device="cpu")
+cagg.device = torch.device("cuda")
+csvc = NodeService(fresh, device="cpu")
+csvc.device = torch.device("cuda")
 for make in (lambda: Engine(DictStorage(series)),
              lambda: Database(ShardSet(4)), lambda: Aggregator(),
              lambda: MetricList(60 * 10**9), lambda: BlockRetriever(pm),
@@ -307,7 +375,10 @@ for make in (lambda: Engine(DictStorage(series)),
              lambda: NodeService(fresh), lambda: run_embedded(cdb),
              lambda: run_clustered(cs),
              lambda: Downsampler(Matcher(RuleSetStore(ckv), b"default"),
-                                 lambda *a: None)):
+                                 lambda *a: None),
+             lambda: NamespaceWatch(ddb, MemStore()),
+             lambda: HTTPJSONServer(csvc), lambda: RawTCPServer(cagg),
+             lambda: HTTPAdminServer(cagg)):
     try:
         make()
         ok = False
@@ -343,7 +414,13 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     server, a NodeService, run_embedded, run_clustered and a Downsampler
     also refuse to start without a card unless asked for the CPU, and a
     bootstrap of a database placed on the card refuses to run without
-    one."""
+    one. Then the metadata plane and the aggregation pipeline over the
+    network: a namespace added through a NamespaceWatch over a KV
+    service, a runtime option folded from KV, a write_batch through the
+    HTTP JSON server, and a collector Reporter's counters over TCP into an
+    aggregator whose flush rides m3msg into storage; a namespace watch, an
+    HTTP JSON server and the aggregator's raw TCP and admin servers refuse
+    to start over objects placed on a card that is not there."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -389,8 +466,15 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
     from m3_tpu_torch.parallel import agg_flush
 
+    from m3_tpu_torch.aggregator.server import HTTPAdminServer, RawTCPServer
+    from m3_tpu_torch.rpc import HTTPJSONServer, NodeService
+    from m3_tpu_torch.storage.namespace_watch import NamespaceWatch
+
     placed = Db(ShardSet(4), device="cpu")
-    placed.device = torch.device("cuda")  # a database placed on the card
+    placed_svc = NodeService(placed, device="cpu")
+    placed_agg = Aggregator(device="cpu")
+    for obj in (placed, placed_svc, placed_agg):
+        obj.device = torch.device("cuda")  # placed on the card
 
     ts, vals, npts = ingest.make_example_raw(4, 12, np.random.default_rng(0))
     calls = [
@@ -436,6 +520,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: run_clustered(None),
         lambda: Downsampler(Matcher(RuleSetStore(MemStore()), b"default"),
                             lambda *a: None),
+        lambda: NamespaceWatch(placed, MemStore()),
+        lambda: HTTPJSONServer(placed_svc),
+        lambda: RawTCPServer(placed_agg),
+        lambda: HTTPAdminServer(placed_agg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
