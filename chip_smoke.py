@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
-durability, cluster, coordinator and networked aggregation paths on one
-NVIDIA GPU.
+durability, cluster, coordinator and networked aggregation paths, and its
+service binaries as child processes, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -234,7 +234,7 @@ Phases (each synchronises the device and fails the run on any error):
               plus the buffer sidecar) equals each node's Database.read;
               six rate / *_over_time / sum queries over
               SessionStorage(session) equal the same queries over node0's
-              LocalStorage (K4 inside the plan graphs); four of them again
+              LocalStorage (K4 inside the plan graphs); two of them again
               from an empty plan cache (a CUDA-graph capture each) while a
               second thread writes through the session; node2 taken away
               through its FaultProxy: MAJORITY writes acknowledge,
@@ -300,7 +300,7 @@ Phases (each synchronises the device and fails the run on any error):
               rows to agg_1m and 5m rows to agg_5m; a collector Reporter over
               a Matcher on KV rules and an AggregatorClient of TCPTransports
               sends bench_counter_gauge's traffic (its 50,000 tagged metrics
-              cut to 14,000 for the phase's time: half Poisson(5) counters,
+              cut to 8,000 for the script's time: half Poisson(5) counters,
               half N(0,1) gauges, seed 23, 30 points at 10 s on the
               settable clock) and 5,000 batch
               timers of 30 values (p50/p95/p99: the agg_flush route); the
@@ -316,15 +316,52 @@ Phases (each synchronises the device and fails the run on any error):
               on one shard set at 1,000 metrics: the leader flushes a
               window, /resign, the follower flushes the next: the stored
               rows have no gap and no duplicate window
+  16. services the port's CLIs as child processes on the card, started
+              through em.Operator (python -m m3_tpu_torch.services ...,
+              JSON configs, fixed free ports; each child's spawn to its
+              listen line printed), their data under a temporary
+              directory the phase removes; the children load the build of
+              phase 2 and must not rebuild it. (a) a dbnode child with an
+              embedded coordinator (4 shards; one namespace of 1m blocks,
+              buffer_past 10 s; write_wait commit log; bootstrap on; a
+              mediator tick every 2 s): on the card (its PID among
+              nvidia-smi's compute apps where the PID namespace shows it,
+              else one CUDA context fewer when it stops, in (b));
+              bench_query_serve_e2e's 10,000 counters x 30 points
+              (0.5 s apart on the wall clock) as snappy protobuf remote
+              writes; the same bodies to an in-process device="cpu"
+              oracle (run_embedded); the mediator's seal and flush; a
+              rate and a sum by (host) over max_over_time over HTTP
+              within "compiled query answers" of the oracle's; the
+              child's /debug/vars guard primaries on codec.hash,
+              codec.encode, codec.decode and plan. (d) meanwhile a kv
+              and an aggregator child (placement_key, flush_log): 1,000
+              metrics x 30 points from run_collector's Reporter over a
+              TCPTransport; the flush log equals a device="cpu"
+              Aggregator fed the same samples. (b) SIGTERM, the node
+              under Panicmon(restart_on_crash=True), SIGKILL, the
+              restart's serving-ready line (kill to serving-ready
+              printed), every acknowledged point read back bit for bit
+              through a Session on the card and through query_range;
+              (d) a standalone coordinator child finds the node through
+              a placement the parent publishes to the kv child and
+              answers a query as the embedded coordinator does. (c)
+              after a SIGTERM, the tools as CLI children at once:
+              verify_index_files exits 0 and read_data_files' rows equal
+              the acknowledged points on each shard, verify_index_files
+              exits 1 naming the fileset of a clone with a flipped byte
 
 Every kernel's launches are counted per path (slice, query, storage,
 flush, graphite, plan, aggregator, durability, cluster, coordinator,
-pipeline;
+pipeline, services;
 phase 14 (g) counts in cluster), each count set to 0 just before its
 path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
 the window kernel's count adds its warm-up launch and, per replay, the
-launches its graph holds.
+launches its graph holds. A service or tools child counts its own
+launches the same way, from 0 at its start, and prints them as it closes
+("... kernel launches {...}"); the phase adds what each child printed,
+read after its stop. The SIGKILLed node's launches die with it.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -805,6 +842,10 @@ def main() -> int:
     # -- 15. config #2 over the network: KV, TCP, m3msg --------------------
     for name, n in _pipeline_phase().items():
         by_path[name]["pipeline"] = n
+
+    # -- 16. the service binaries as child processes ------------------------
+    for name, n in _services_phase().items():
+        by_path[name]["services"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -3794,9 +3835,10 @@ CLUSTER_QUERIES = ("rate(bench_metric[5m])", "increase(bench_metric[5m])",
                    "avg_over_time(bench_metric[5m])",
                    "max_over_time(bench_metric[5m])",
                    "sum(rate(bench_metric[5m]))")
-# The queries run again from an empty plan cache (a capture each) while a
-# second thread writes through the session.
-CONCURRENT_QUERIES = CLUSTER_QUERIES[2:]
+# Two of the queries run again from an empty plan cache (a capture each)
+# while a second thread writes through the session (four took 68 s of the
+# script's 1,200 on the H100's host, PERF.md §4).
+CONCURRENT_QUERIES = CLUSTER_QUERIES[3:5]
 # The peer-streaming steps that phase 13 (a) times (cProfile; on Python
 # 3.12 it records every thread, the donor's handler threads included, so
 # the split is indicative only).
@@ -5119,11 +5161,13 @@ def _check_aggregates(block, roll, blk, qs) -> None:
 
 
 # Phase 15: config #2 (the docker/m3aggregator deployment) over the network.
-# bench_counter_gauge's 50,000 metrics cut to 14,000 for the phase's 120 s:
-# every untimed sample pays the pure-Python wire codec twice (6,297
-# samples/s into the aggregators on the H100's host at 20,000, PERF.md
-# §4); the 30 points at 10 s, the two policies and the draws stay.
-PIPE_METRICS, PIPE_POINTS, PIPE_SEED = 14_000, 30, 23
+# bench_counter_gauge's 50,000 metrics cut to 8,000, for the phase's 120 s
+# and the script's time with phase 16 after it (at 14,000 the script took
+# 1,170 s of its 1,200 on the H100's host, PERF.md §4): every untimed
+# sample pays the pure-Python wire codec twice (6,297 samples/s into the
+# aggregators at 20,000); the 30 points at 10 s, the two policies and the
+# draws stay.
+PIPE_METRICS, PIPE_POINTS, PIPE_SEED = 8_000, 30, 23
 PIPE_TIMERS, PIPE_TIMER_VALUES, PIPE_TIMER_SEED = 5_000, 30, 29
 PIPE_AGG_SHARDS = 64            # m3_tpu/services/config.py:111
 PIPE_TOPIC_SHARDS = 64
@@ -5143,7 +5187,7 @@ def _await(cond, what: str, timeout: float = PIPE_WAIT_S) -> float:
     deadline = t0 + timeout
     while not cond():
         check(time.perf_counter() < deadline,
-              f"pipeline: {what} not within {timeout} s")
+              f"{what} not within {timeout} s")
         time.sleep(0.005)
     return time.perf_counter() - t0
 
@@ -5303,7 +5347,7 @@ def _pipe_metadata(kv, now, closers):
         except ValueError:
             continue
     waited = _await(lambda: b"agg_5m" in db.namespaces,
-                    "agg_5m served through the watch")
+                    "pipeline: agg_5m served through the watch")
     for ns in (b"agg_1m", b"agg_5m"):
         n = db.namespace(ns)
         check(n.device == db.device and n.index is not None
@@ -5312,7 +5356,7 @@ def _pipe_metadata(kv, now, closers):
     mgr = runtime.watch_kv_runtime_options(st, runtime.RuntimeOptionsManager())
     admin.set("_kvconfig/" + runtime.CLIENT_WRITE_CONSISTENCY, b'"all"')
     _await(lambda: mgr.get().write_consistency == "all",
-           "the runtime option folded")
+           "pipeline: the runtime option folded")
     _card(f"pipeline (a) metadata: agg_1m and agg_5m on {db.device} in "
           f"{time.perf_counter() - t0!r} s (the watch push {waited!r} s); "
           f"runtime write consistency {mgr.get().write_consistency!r} from "
@@ -5538,7 +5582,7 @@ def _pipe_aggregate(kv, db, now, closers):
                  for i in timers], md_t)
             oracle_s += time.perf_counter() - o0
             _await(lambda n=sent: received() >= n,
-                   f"point {k}: {sent} samples at the aggregators")
+                   f"pipeline: point {k}: {sent} samples at the aggregators")
         t_last = time.perf_counter()
         send_s = t_last - t_send - oracle_s
         errors = sum(r.errors + r.shed for r in raws)
@@ -5550,7 +5594,7 @@ def _pipe_aggregate(kv, db, now, closers):
         flush_s = time.perf_counter() - t_flush
         rows = 6 * PIPE_METRICS + 2 * 3 * PIPE_TIMERS
         _await(lambda: all(p.unacked() == 0 for p in producers)
-               and ingester.ingested >= rows, "the m3msg delivery")
+               and ingester.ingested >= rows, "pipeline: the m3msg delivery")
         t_stored = time.perf_counter()
     check(all(a._election.is_leader() for a in aggs.values()),
           "an aggregator did not lead its shard set")
@@ -5672,7 +5716,7 @@ def _pipe_failover(kv, db, now, closers) -> None:
                                   for m, v in zip(ids, vals)], md)
         sent[0] += 2 * n
         _await(lambda: sum(r.frames for r in raws.values()) == sent[0],
-               f"failover window {w} at both instances")
+               f"pipeline: failover window {w} at both instances")
 
     def status():
         with urllib.request.urlopen(side.endpoint + "/status",
@@ -5698,7 +5742,8 @@ def _pipe_failover(kv, db, now, closers) -> None:
           and not aggs["leader"]._election.is_leader(),
           "the follower did not take over the flush")
     _await(lambda: all(p.unacked() == 0 for p in producers)
-           and ingester.ingested >= 2 * n, "the failover's m3msg delivery")
+           and ingester.ingested >= 2 * n,
+           "pipeline: the failover's m3msg delivery")
     oracle.flush()
     want = oracle_sink.series({str(pol): b"agg_1m"})
     check(sum(len(t) for t, _ in want.values()) == 2 * n,
@@ -5753,6 +5798,791 @@ def _pipe_seal_read_query(db, now, want) -> None:
           f"equal the oracle; {PIPE_QUERY} over agg_1m compiled, "
           f"{blk.values.shape}, within the compiled bounds of the CPU "
           f"engine (max rel {err!r})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the service binaries
+# ---------------------------------------------------------------------------
+
+# The port's CLIs as child processes on the card (`python -m
+# m3_tpu_torch.services ...` started through em.Operator, and under
+# utils.panicmon.Panicmon for the crash), each config JSON text of
+# examples/dbnode.yml's shape with a coordinator section (every JSON
+# document is YAML, and load_file reads JSON without PyYAML), fixed free
+# ports so that a restarted child comes back on its port. Cuts: one
+# namespace of 1m blocks with a 10 s buffer_past (the reference's drill
+# knobs, m3_tpu/services/config.py:29-33) so that a block seals within the
+# phase, and 4 shards (M3's default is 64) so that (c) runs one tools
+# child a shard within it. (a) bench_query_serve_e2e's counters (seed 61,
+# 10,000 over 200 hosts), their first 30 points retimed to SVC_POINT_MS
+# apart on the wall clock (14.5 s: a block has room for them when (a)
+# starts in its first 43 s, so (a) seldom waits for the next block), as
+# snappy protobuf remote writes of SVC_REQUEST series each; (d) 1,000
+# metrics x 30 points (half Poisson(5) counters, half N(0,1) gauges, seed
+# 67) from a collector Reporter.
+SVC_SERIES, SVC_HOSTS, SVC_POINTS, SVC_SEED = 10_000, 200, 30, 61
+SVC_POINT_MS, SVC_SHARDS, SVC_REQUEST = 500, 4, 500
+SVC_AGG_METRICS, SVC_AGG_SEED, SVC_AGG_SHARDS = 1_000, 67, 64
+SVC_POLICY = "1m:40h"
+SVC_BLOCK_S, SVC_BUFFER_PAST_S = 60, 10
+# (a) a rate and a sum by (host) (the latter over max_over_time: K4 in its
+# plan graph) over the last 5 s at 1 s steps; (b) one host's 50 series
+# read back through query_range at each sample: 1,500 cells, below the
+# plan floor (4,096), so that the interpreter serves the raw f64 samples
+# (past it, a bare selector's compiled planes are f32, in the reference
+# too); (d) the query both coordinators answer (2,500 series: the
+# standalone one fetches them through its Session).
+SVC_QUERIES = ("rate(bench_requests[10s])",
+               "sum by (host) (max_over_time(bench_requests[10s]))")
+SVC_READ_MATCH = 'bench_requests{host="host-000"}'
+SVC_FED_QUERY = ('sum by (host) (rate(bench_requests'
+                 '{host=~"host-0[0-4][0-9]"}[10s]))')
+SVC_SPAWN_S = 180.0     # a child's spawn to its listen line
+SVC_WAIT_S = 240.0      # every other wait's deadline
+
+
+def _free_ports(n: int):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _svc_spawn(ops) -> dict:
+    """Start each (name, Operator) at once, each on a thread; {name:
+    seconds from spawn to its listen line}. A failed start fails the
+    run."""
+    import threading
+
+    out, errs = {}, []
+
+    def start(name, op):
+        t0 = time.perf_counter()
+        try:
+            op.start(timeout_s=SVC_SPAWN_S)
+            out[name] = time.perf_counter() - t0
+        except Exception as err:  # noqa: BLE001 - reported below
+            errs.append(f"{name}: {err!r}")
+
+    threads = [threading.Thread(target=start, args=nop) for nop in ops]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SVC_SPAWN_S + 30)
+    check(not errs and len(out) == len(ops), f"services: spawn {errs}")
+    return out
+
+
+def _svc_node_config(data_dir: str, node_port: int, coord_port: int) -> str:
+    return json.dumps({
+        "host_id": "node0", "listen_address": f"127.0.0.1:{node_port}",
+        "data_dir": data_dir, "num_shards": SVC_SHARDS,
+        "commitlog_enabled": True, "commitlog_strategy": "write_wait",
+        "bootstrap_enabled": True, "tick_interval": "2s",
+        "namespaces": [{"name": "default", "retention": "48h",
+                        "block_size": f"{SVC_BLOCK_S}s",
+                        "buffer_past": f"{SVC_BUFFER_PAST_S}s",
+                        "index_enabled": True}],
+        "coordinator": {"listen_address": f"127.0.0.1:{coord_port}",
+                        "namespace": "default",
+                        "rules_namespace": "default"}}, indent=1)
+
+
+def _svc_compute_apps():
+    """[(pid, used memory)] of nvidia-smi's compute apps. Where the
+    machine's PID namespace hides the processes' own PIDs (this process is
+    not among them), the list still counts the processes holding a CUDA
+    context."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return [tuple(x.strip() for x in ln.split(","))
+            for ln in smi.stdout.strip().splitlines() if ln.strip()]
+
+
+def _svc_primaries(endpoint: str) -> dict:
+    """The guard's primary dispatches by route in a child (its
+    /debug/vars): which device routes its work took."""
+    code, out = _http(endpoint + "/debug/vars")
+    check(code == 200, f"services: /debug/vars answered {code}")
+    return {r: int(v["counts"].get("primary", 0))
+            for r, v in json.loads(out)["compute"].items()}
+
+
+def _svc_launches(lines, what: str) -> dict:
+    """A child's kernel launches: the JSON of the "kernel launches" line it
+    printed as it closed, its wrappers' own counts."""
+    found = [ln for ln in lines if " kernel launches {" in ln]
+    check(found, f"services: {what} printed no kernel launches line")
+    return json.loads(found[-1].partition(" kernel launches ")[2])
+
+
+def _svc_tool(name: str, *args) -> list:
+    """A tools CLI child's command line."""
+    return [sys.executable, "-m", "m3_tpu_torch.tools", name, *args]
+
+
+def _svc_prom(q: str, got: bytes, want: bytes, what: str) -> float:
+    """Two Prometheus JSON answers: the same series (by label set), the
+    same timestamps, values within the compiled route's bounds
+    (_plan_tol). Returns the largest relative difference."""
+    g, w = json.loads(got), json.loads(want)
+    check(g["status"] == w["status"] == "success", f"{q}: status ({what})")
+    key = lambda r: json.dumps(r["metric"], sort_keys=True)  # noqa: E731
+    gs = {key(r): r["values"] for r in g["data"]["result"]}
+    ws = {key(r): r["values"] for r in w["data"]["result"]}
+    check(sorted(gs) == sorted(ws) and ws, f"{q}: series differ ({what})")
+    gt = [p[0] for k in sorted(ws) for p in gs[k]]
+    wt = [p[0] for k in sorted(ws) for p in ws[k]]
+    check(gt == wt, f"{q}: timestamps differ ({what})")
+    gv = np.array([float(p[1]) for k in sorted(ws) for p in gs[k]])
+    wv = np.array([float(p[1]) for k in sorted(ws) for p in ws[k]])
+    tol = _plan_tol(q, wv)
+    check(bool(np.allclose(gv, wv, equal_nan=True, **tol)),
+          f"{q}: values beyond {tol} ({what})")
+    fin = np.isfinite(wv) & (wv != 0)
+    return float((np.abs(gv - wv)[fin] / np.abs(wv[fin])).max()) \
+        if fin.any() else 0.0
+
+
+def _svc_range_url(base: str, q: str, start_s: float, end_s: float,
+                   step: str) -> str:
+    import urllib.parse
+
+    return (f"{base}/api/v1/query_range?" + urllib.parse.urlencode(
+        {"query": q, "start": start_s, "end": end_s, "step": step}))
+
+
+def _svc_span_s() -> float:
+    """Seconds from (a)'s first point to its last."""
+    return (SVC_POINTS - 1) * SVC_POINT_MS / 1e3
+
+
+def _svc_go(now_s: float):
+    """(block start, first point) in whole seconds of (a)'s points: all
+    SVC_POINTS of them, SVC_POINT_MS apart and a little in the future,
+    inside one block of the child's namespace, so that one seal holds
+    every point. Waits for the next block when this one has no room
+    left."""
+    block = int(now_s) // SVC_BLOCK_S * SVC_BLOCK_S
+    first = int(now_s) + 2
+    if first + _svc_span_s() >= block + SVC_BLOCK_S:
+        block += SVC_BLOCK_S
+        time.sleep(max(0.0, block - time.time()))
+        first = block + 2
+    return block, first
+
+
+def _services_phase() -> dict:
+    """Phase 16: the service binaries as child processes on the card, all
+    on 127.0.0.1, their data under a temporary directory the phase
+    removes. (a) a dbnode child with its embedded coordinator, started
+    through em.Operator: its PID on the card, 10,000 counters x 30 points
+    as snappy protobuf remote writes, the same bodies to an in-process
+    device="cpu" oracle, the mediator's seal and flush, a rate and a sum
+    by (host) over HTTP within the compiled bounds of the oracle's, the
+    guard's primaries on the codec.* and plan routes; (d) meanwhile a kv
+    and an aggregator child, a collector Reporter's 1,000 metrics x 30
+    points, the flush log against a device="cpu" Aggregator. (b) SIGTERM,
+    the node under Panicmon, SIGKILL, the restart's serving-ready line,
+    every acknowledged point read back through a Session and
+    query_range; (d) a standalone coordinator child finds the node
+    through a placement in the kv child and answers as the embedded one.
+    (c) after a SIGTERM the tools CLI children: verify_index_files and
+    read_data_files per shard, a flipped byte in a clone. Returns the
+    kernels' launches over the phase: what each child printed as it closed
+    (its own wrappers' counts, from 0 at its start) and the parent's own
+    (K2 in the Session), the parent's counts set to 0 just before."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from m3_tpu_torch import em
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    so = ck.BUILD_DIR / "m3_tpu_torch_kernels.so"
+    so_mtime = so.stat().st_mtime_ns if so.exists() else None
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="m3-services-")
+    ports = dict(zip(("node", "coord", "kv", "agg", "fed"), _free_ports(5)))
+    ops, stops, children = {}, [], {}
+    try:
+        for name, service, text in (
+                ("node", "dbnode", _svc_node_config(
+                    os.path.join(root, "node"), ports["node"],
+                    ports["coord"])),
+                ("kv", "kv", json.dumps({
+                    "listen_address": f"127.0.0.1:{ports['kv']}"}))):
+            op = ops[name] = em.Operator(os.path.join(root, name))
+            op.setup(em.ProcessSpec(service, text, op.workdir))
+            stops.append(functools.partial(op.stop, grace_s=120))
+        spawned = _svc_spawn(list(ops.items()))
+        kv_ep = ops["kv"].endpoint
+        op = ops["agg"] = em.Operator(os.path.join(root, "agg"))
+        op.setup(em.ProcessSpec("aggregator", json.dumps({
+            "instance_id": "agg0", "listen_address":
+                f"127.0.0.1:{ports['agg']}", "kv_endpoint": kv_ep,
+            "placement_key": "_placement/m3aggregator",
+            "flush_log": os.path.join(root, "agg", "flush.log"),
+            "flush_interval": "1s"}), op.workdir))
+        stops.append(functools.partial(op.stop, grace_s=120))
+        spawned.update(_svc_spawn([("agg", op)]))
+        _card("services: spawn to listening, seconds by child "
+              f"{spawned}")
+        acked, state = _svc_single_node(ops, ports, root)
+        children["node restarted"] = _svc_crash_restart(
+            ops, ports, root, acked, state, stops)
+        children["tools"] = _svc_tools(root, acked, state)
+    finally:
+        errs = []
+        for stop in reversed(stops):
+            try:
+                stop()
+            except Exception as err:  # noqa: BLE001 - reach every child
+                errs.append(repr(err))
+        shutil.rmtree(root, ignore_errors=True)
+    check(not errs, f"services: teardown {errs}")
+    for name, op in ops.items():
+        children[name] = _svc_launches(op.output, f"the {name} child")
+    check(so_mtime is None or so.stat().st_mtime_ns == so_mtime,
+          "services: a child rebuilt the kernels' extension")
+    torch.cuda.synchronize()
+    own = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    launches = {k: own[k] + sum(c.get(k, 0) for c in children.values())
+                for k in own}
+    secs = time.perf_counter() - t0
+    _card(f"services: phase 16 in {secs!r} s, launches {launches} (each "
+          f"child's own count, printed as it closed: {children}; this "
+          f"process's {own}; the SIGKILLed node's are not seen)")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash", "window")),
+          f"phase 16 did not launch every kernel: {launches}")
+    return launches
+
+
+def _svc_corpus(first_s: int):
+    """(series, t_ns): bench_query_serve_e2e's counters, their first
+    SVC_POINTS points retimed to SVC_POINT_MS apart from first_s."""
+    from m3_tpu_torch.testing import serve_corpus
+
+    series, _ = serve_corpus(SVC_SERIES, SVC_HOSTS, SVC_SEED)
+    t = first_s * 10**9 + np.arange(SVC_POINTS, dtype=np.int64) * (
+        SVC_POINT_MS * 10**6)
+    return {sid: {"tags": s["tags"], "t": t, "v": s["v"][:SVC_POINTS]}
+            for sid, s in series.items()}, t
+
+
+def _svc_bodies(series, t):
+    """Snappy WriteRequest bodies of SVC_REQUEST series x all points."""
+    from m3_tpu_torch.coordinator import promremote as pr
+
+    sids = list(series)
+    t_ms = (t // 1_000_000).tolist()
+    out = []
+    for g0 in range(0, len(sids), SVC_REQUEST):
+        group = sids[g0:g0 + SVC_REQUEST]
+        req = [(series[s]["tags"], list(zip(t_ms, series[s]["v"].tolist())))
+               for s in group]
+        out.append((pr.snappy_compress(pr.encode_write_request(req)),
+                    len(group) * len(t)))
+    return out
+
+
+def _svc_oracle(t):
+    """The in-process oracle: run_embedded over a device="cpu" Database
+    with the child's shards and namespace, its clock held a second before
+    the first point (every point inside the buffer's acceptance
+    window)."""
+    from m3_tpu_torch.coordinator import run_embedded
+    from m3_tpu_torch.parallel.sharding import ShardSet
+    from m3_tpu_torch.storage.database import Database
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+
+    clock = lambda: int(t[0]) - 10**9  # noqa: E731
+    db = Database(ShardSet(SVC_SHARDS), clock=clock, device="cpu")
+    db.ensure_namespace(b"default", NamespaceOptions(
+        retention_ns=48 * 3600 * 10**9, block_size_ns=SVC_BLOCK_S * 10**9,
+        buffer_past_ns=SVC_BUFFER_PAST_S * 10**9,
+        buffer_future_ns=120 * 10**9, index_enabled=True))
+    return db, run_embedded(db, clock=clock, device="cpu")
+
+
+def _svc_single_node(ops, ports, root):
+    """(a), with (d)'s aggregation between the writes and the seal.
+    Returns the acknowledged points {i tag: (t, v)} and what (b) needs."""
+    node = ops["node"]
+    coord = f"http://127.0.0.1:{ports['coord']}"
+    wait_s = time.time()
+    block, first = _svc_go(wait_s)
+    wait_s = time.time() - wait_s
+    series, t = _svc_corpus(first)
+    e0 = time.perf_counter()
+    bodies = _svc_bodies(series, t)
+    encode_s = time.perf_counter() - e0
+    n = len(series) * len(t)
+    w0 = time.perf_counter()
+    for body, n_body in bodies:
+        code, out = _http(coord + "/api/v1/prom/remote/write", body)
+        check(code == 200 and json.loads(out)["wrote"] == n_body,
+              f"services (a): remote write answered {code}: {out[:200]!r}")
+    write_s = time.perf_counter() - w0
+    acked = {s["tags"][b"i"]: (s["t"], s["v"]) for s in series.values()}
+    apps = _svc_compute_apps()
+    if str(os.getpid()) in [a[0] for a in apps]:
+        check(str(node.pid) in [a[0] for a in apps],
+              f"services (a): the dbnode child {node.pid} is not among "
+              f"the card's compute apps {apps}")
+    db, oracle = _svc_oracle(t)
+    try:
+        o0 = time.perf_counter()
+        for body, n_body in bodies:
+            code, out = _http(oracle.endpoint + "/api/v1/prom/remote/write",
+                              body)
+            check(code == 200 and json.loads(out)["wrote"] == n_body,
+                  f"services (a): the oracle answered {code}")
+        oracle_s = time.perf_counter() - o0
+        _svc_aggregate(ops, root)
+        seal_s = _await(lambda: _svc_flushed(root, block),
+                        "services (a): the mediator's seal and flush",
+                        SVC_WAIT_S)
+        sealed_at = time.time() - block
+        errs = {}
+        for q in SVC_QUERIES:
+            q0 = time.perf_counter()
+            code, got = _http(_svc_range_url(
+                coord, q, first + _svc_span_s() - 5, first + _svc_span_s(),
+                "1"))
+            q_s = time.perf_counter() - q0
+            check(code == 200, f"services (a): {q} answered {code}")
+            _, want = _http(_svc_range_url(
+                oracle.endpoint, q, first + _svc_span_s() - 5,
+                first + _svc_span_s(), "1"))
+            errs[q] = (_svc_prom(q, got, want, "the child against the "
+                                 "device=\"cpu\" oracle"), q_s, len(got))
+    finally:
+        oracle.close()
+        db.close()
+    prims = _svc_primaries(coord)
+    for route in ("codec.hash", "codec.encode", "codec.decode", "plan"):
+        check(prims.get(route, 0) > 0,
+              f"services (a): no {route} primary in the child: {prims}")
+    _card(f"services (a) dbnode child (pid {node.pid}; the card's compute "
+          f"apps (pid, memory) {apps}, this process {os.getpid()}): "
+          f"{n} samples in "
+          f"{len(bodies)} remote writes ({encode_s!r} s to encode) in "
+          f"{write_s!r} s: {n / write_s!r} samples/s (the oracle's "
+          f"{n / oracle_s!r}); {wait_s!r} s waited for a block with room; "
+          f"sealed and flushed {seal_s!r} s after (d), {sealed_at!r} s "
+          f"after the block start; queries (max rel diff, s, bytes) "
+          f"{errs}; guard primaries {prims}")
+    return acked, {"first": first, "block": block}
+
+
+def _svc_flushed(root: str, block: int) -> bool:
+    """Every shard's fileset of (a)'s block is on disk (the mediator's
+    flush; a shard without a series of the block has none)."""
+    from m3_tpu_torch.persist.fs import PersistManager
+
+    pm = PersistManager(os.path.join(root, "node", "data"))
+    have = [bs for s in range(SVC_SHARDS)
+            for bs, _ in pm.list_filesets(b"default", s)]
+    return have.count(block * 10**9) == SVC_SHARDS
+
+
+def _svc_aggregate(ops, root) -> None:
+    """(d) The aggregator child: a placement in the kv child gives it
+    every shard; the rules in KV; run_collector's Reporter sends 1,000
+    metrics x 30 points over a TCPTransport, all inside one 1m window;
+    the flush log, once the window closes, equals a device="cpu"
+    Aggregator fed the same samples at a clock in the same window."""
+    from m3_tpu_torch.aggregator import Aggregator, CaptureHandler
+    from m3_tpu_torch.aggregator.server import TCPTransport
+    from m3_tpu_torch.cluster.kv_service import RemoteStore
+    from m3_tpu_torch.cluster.placement import Instance, PlacementService
+    from m3_tpu_torch.metrics import id as metric_id
+    from m3_tpu_torch.metrics.filters import TagsFilter
+    from m3_tpu_torch.metrics.matcher import RuleSetStore
+    from m3_tpu_torch.metrics.metric import MetricUnion
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.rules import MappingRuleSnapshot, Rule, RuleSet
+    from m3_tpu_torch.services import load_dict
+    from m3_tpu_torch.services.run import run_collector
+
+    agg = ops["agg"]
+    admin = RemoteStore(ops["kv"].endpoint)
+    closers = [admin.close]
+    try:
+        pol = StoragePolicy.parse(SVC_POLICY)
+        RuleSetStore(admin).publish(RuleSet(b"default", 1, mapping_rules=[
+            Rule([MappingRuleSnapshot("svc", 0, TagsFilter(
+                {"__name__": "svc_cg_*"}), 0, (pol,))])]))
+        placement = PlacementService(admin, "_placement/m3aggregator").init(
+            [Instance("agg0", agg.endpoint)], SVC_AGG_SHARDS, 1)
+        _await(lambda: any("placement update" in ln for ln in agg.output),
+               "services (d): the aggregator child's placement update",
+               SVC_WAIT_S)
+        tr = TCPTransport(agg.endpoint, batch_size=256)
+        closers.append(tr.close)
+        rep, store = run_collector(load_dict({
+            "num_shards": SVC_AGG_SHARDS, "kv_endpoint": ops["kv"].endpoint},
+            "collector"), lambda: placement, {"agg0": tr})
+        closers.append(store.close)
+        n = SVC_AGG_METRICS
+        rng = np.random.default_rng(SVC_AGG_SEED)
+        cvals = rng.poisson(5.0, (n // 2, SVC_POINTS)).astype(np.int64)
+        gvals = rng.standard_normal((n - n // 2, SVC_POINTS))
+        cids = [metric_id.encode(b"svc_cg_counter", {b"instance": b"%d" % i})
+                for i in range(n // 2)]
+        gids = [metric_id.encode(b"svc_cg_gauge", {b"instance": b"%d" % i})
+                for i in range(n - n // 2)]
+        res = pol.resolution.window_ns
+        now = time.time_ns()
+        if now % res > res - 20 * 10**9:  # room for the sends in a window
+            time.sleep((res - now % res) / 1e9 + 0.5)
+        window = time.time_ns() // res
+        s0 = time.perf_counter()
+        for k in range(SVC_POINTS):
+            for mid, v in zip(cids, cvals[:, k].tolist()):
+                check(rep.report_counter(mid, v), "services (d): unreported")
+            for mid, v in zip(gids, gvals[:, k].tolist()):
+                check(rep.report_gauge(mid, v), "services (d): unreported")
+        check(tr.flush(), "services (d): the TCPTransport flush failed")
+        send_s = time.perf_counter() - s0
+        check(time.time_ns() // res == window,
+              "services (d): the sends crossed a window boundary")
+        cap = CaptureHandler()
+        clock = {"t": window * res + 1}
+        oracle = Aggregator(num_shards=SVC_AGG_SHARDS,
+                            clock=lambda: clock["t"], flush_handler=cap,
+                            device="cpu")
+        md = rep._matcher.match(cids[0]).for_existing_id
+        for k in range(SVC_POINTS):
+            oracle.add_untimed_batch(
+                [MetricUnion.counter(m, v)
+                 for m, v in zip(cids, cvals[:, k].tolist())]
+                + [MetricUnion.gauge(m, v)
+                   for m, v in zip(gids, gvals[:, k].tolist())], md)
+        clock["t"] = (window + 1) * res + 1
+        oracle.flush()
+        want = sorted(b"%s\t%d\t%r\t%s" % (
+            m.id, m.time_nanos, m.value, str(m.storage_policy).encode())
+            for m in cap.metrics)
+        log = os.path.join(root, "agg", "flush.log")
+
+        def lines():
+            if not os.path.exists(log):
+                return []
+            with open(log, "rb") as f:
+                return f.read().splitlines()
+
+        flush_s = _await(lambda: len(lines()) >= len(want),
+                         "services (d): the aggregator child's flush log",
+                         SVC_WAIT_S)
+        got = sorted(lines())
+        check(got == want and len(want) == n,
+              f"services (d): the flush log's {len(got)} rows differ from "
+              f"the device=\"cpu\" Aggregator's {len(want)}")
+        _card(f"services (d) aggregator child: {n * SVC_POINTS} samples "
+              f"from the Reporter in {send_s!r} s "
+              f"({n * SVC_POINTS / send_s!r} samples/s); its flush log's "
+              f"{len(got)} rows, {flush_s!r} s after the sends, equal the "
+              f"device=\"cpu\" Aggregator's")
+    finally:
+        for close in reversed(closers):
+            close()
+
+
+def _svc_log_lines(log: str) -> list:
+    if not os.path.exists(log):
+        return []
+    with open(log, errors="replace") as f:
+        return f.readlines()
+
+
+def _svc_log_count(log: str, text: str) -> int:
+    return sum(text in ln for ln in _svc_log_lines(log))
+
+
+def _svc_crash_restart(ops, ports, root, acked, state, stops) -> dict:
+    """(b) SIGTERM the (a) child, start the same node under
+    Panicmon(restart_on_crash=True) (its output to a log), SIGKILL it;
+    the restart's serving-ready line; every acknowledged point read back
+    bit for bit through a Session on the card and through query_range;
+    then (d)'s standalone coordinator; a SIGTERM ends the node. Returns
+    the restarted child's kernel launches, printed as it closed."""
+    import shlex
+    import signal
+
+    from m3_tpu_torch.client import Session, SessionOptions
+    from m3_tpu_torch.cluster.placement import Instance, initial_placement
+    from m3_tpu_torch.cluster.topology import StaticTopology
+    from m3_tpu_torch.index.query import TermQuery
+    from m3_tpu_torch.utils.panicmon import Panicmon
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    node = ops["node"]
+    coord = f"http://127.0.0.1:{ports['coord']}"
+    node_ep = f"127.0.0.1:{ports['node']}"
+    proc = node._proc
+    apps = _svc_compute_apps()
+    s0 = time.perf_counter()
+    node.stop(grace_s=120)
+    stop_s = time.perf_counter() - s0
+    check(proc.returncode == 0,
+          f"services (b): SIGTERM ended the node with {proc.returncode}")
+    # The only process that stops here is the node child: the card lists
+    # one CUDA context fewer, so the child held one.
+    after = _svc_compute_apps()
+    check(len(after) == len(apps) - 1,
+          f"services (b): the card's compute apps {apps} before the node "
+          f"child stopped, {after} after")
+    log = os.path.join(root, "node", "panicmon.log")
+    argv = ["/bin/sh", "-c", f"cd {shlex.quote(here)} && exec "
+            f"{shlex.join(node.argv())} >> {shlex.quote(log)} 2>&1"]
+    p0 = time.perf_counter()
+    mon = Panicmon(argv, restart_on_crash=True, max_restarts=1,
+                   backoff_s=0.1).start()
+    stops.append(lambda: mon.stop(grace_s=120))
+    _await(lambda: _svc_log_count(log, "embedded coordinator on") >= 1,
+           "services (b): the node under Panicmon listening", SVC_SPAWN_S)
+    first_up = time.perf_counter() - p0
+    k0 = time.perf_counter()
+    os.kill(mon._proc.pid, signal.SIGKILL)
+    fed = _svc_fed_start(ops, ports, root, stops)
+    ready = _await(
+        lambda: _svc_log_count(log, "dbnode serving-ready") >= 2,
+        "services (b): the restarted node's serving-ready line",
+        SVC_SPAWN_S)
+    _await(lambda: _svc_log_count(log, "embedded coordinator on") >= 2,
+           "services (b): the restarted node listening", SVC_SPAWN_S)
+    listen = time.perf_counter() - k0
+    check(mon.restarts == 1 and mon.exit_codes[:1] == [-signal.SIGKILL],
+          f"services (b): Panicmon restarts {mon.restarts}, exit codes "
+          f"{mon.exit_codes}")
+    with open(log, errors="replace") as f:
+        boot = [ln.strip() for ln in f if "dbnode serving-ready" in ln]
+    check(f"series={SVC_SERIES} " in boot[-1],
+          f"services (b): the restart's {boot[-1]!r}")
+    sess = Session(StaticTopology(initial_placement(
+        [Instance("node0", node_ep)], SVC_SHARDS, 1)),
+        SessionOptions(timeout_s=600))
+    try:
+        f0 = time.perf_counter()
+        got = sess.fetch_tagged(b"default", TermQuery(
+            b"__name__", b"bench_requests"), 0, 2**62)
+        fetch_s = time.perf_counter() - f0
+    finally:
+        sess.close()
+    id_of = {}
+    for sid, e in got.items():
+        i = e["tags"][b"i"]
+        id_of[sid] = i
+        wt, wv = acked[i]
+        check(np.asarray(e["t"]).tobytes() == wt.tobytes()
+              and _bits(e["v"]) == _bits(wv),
+              f"services (b): series i={i!r} reads back otherwise")
+    check(len(got) == len(acked) == SVC_SERIES,
+          f"services (b): {len(got)} of {len(acked)} series read back")
+    first = state["first"]
+    code, out = _http(_svc_range_url(coord, SVC_READ_MATCH, first,
+                                     first + _svc_span_s(),
+                                     str(SVC_POINT_MS / 1e3)))
+    check(code == 200, f"services (b): query_range answered {code}")
+    res = json.loads(out)["data"]["result"]
+    for r in res:
+        wt, wv = acked[r["metric"]["i"].encode()]
+        check([round(float(p[0]) * 1e3) * 10**6 for p in r["values"]]
+              == wt.tolist()
+              and _bits([float(p[1]) for p in r["values"]]) == _bits(wv),
+              f"services (b): query_range of i={r['metric']['i']} differs")
+    check(len(res) == SVC_SERIES // SVC_HOSTS,
+          f"services (b): query_range read {len(res)} series")
+    _card(f"services (b) crash: SIGTERM closed the node in {stop_s!r} s "
+          f"(the card's compute apps {apps} before, one fewer after); "
+          f"under Panicmon spawn to listening {first_up!r} s; SIGKILL to "
+          f"serving-ready {ready!r} s, to listening {listen!r} s "
+          f"({boot[-1]}); {SVC_SERIES * SVC_POINTS} acknowledged points, 0 "
+          f"lost: a Session's fetch_tagged on the card in {fetch_s!r} s and "
+          f"{len(res)} series through query_range, bit for bit")
+    _svc_fed_check(ports, state, fed)
+    pid = mon._proc.pid
+    mon.stop(grace_s=120)
+    check(mon.exit_codes[-1] == 0,
+          f"services (b): SIGTERM ended the restarted node {pid} with "
+          f"{mon.exit_codes}")
+    state["id_of"] = id_of
+    return _svc_launches(_svc_log_lines(log), "the restarted node")
+
+
+def _svc_fed_start(ops, ports, root, stops) -> dict:
+    """(d) The parent publishes the node in a placement to the kv child and
+    starts a standalone coordinator child on a thread, while the node
+    restarts: its Session reaches the node only when it is asked."""
+    import functools
+    import threading
+
+    from m3_tpu_torch import em
+    from m3_tpu_torch.cluster.kv_service import RemoteStore
+    from m3_tpu_torch.cluster.placement import Instance, PlacementService
+
+    admin = RemoteStore(ops["kv"].endpoint)
+    try:
+        PlacementService(admin, "_placement").init(
+            [Instance("node0", f"127.0.0.1:{ports['node']}")], SVC_SHARDS, 1)
+    finally:
+        admin.close()
+    op = ops["fed"] = em.Operator(os.path.join(root, "fed"))
+    op.setup(em.ProcessSpec("coordinator", json.dumps({
+        "listen_address": f"127.0.0.1:{ports['fed']}",
+        "kv_endpoint": ops["kv"].endpoint, "namespace": "default"}),
+        op.workdir))
+    stops.append(functools.partial(op.stop, grace_s=120))
+    out = {"op": op}
+    out["thread"] = threading.Thread(
+        target=lambda: out.update(_svc_spawn([("coordinator", op)])))
+    out["thread"].start()
+    return out
+
+
+def _svc_fed_check(ports, state, fed) -> None:
+    """(d) SVC_FED_QUERY through the standalone coordinator (its Session
+    fetches from the restarted node) equals the same query through the
+    node's embedded coordinator; a SIGTERM ends the child."""
+    fed["thread"].join(SVC_SPAWN_S + 60)
+    check("coordinator" in fed, "services (d): the standalone coordinator "
+                                "did not start")
+    op = fed["op"]
+    first = state["first"]
+    urls = [_svc_range_url(base, SVC_FED_QUERY, first + _svc_span_s() - 5,
+                           first + _svc_span_s(), "1")
+            for base in (op.endpoint, f"http://127.0.0.1:{ports['coord']}")]
+    q0 = time.perf_counter()
+    code, got = _http(urls[0])
+    fed_s = time.perf_counter() - q0
+    check(code == 200, f"services (d): the standalone coordinator "
+                       f"answered {code}: {got[:200]!r}")
+    code, emb = _http(urls[1])
+    check(code == 200, f"services (d): the embedded coordinator {code}")
+    err = _svc_prom(SVC_FED_QUERY, got, emb, "standalone against embedded")
+    proc = op._proc
+    op.stop(grace_s=120)
+    check(proc.returncode == 0,
+          f"services (d): SIGTERM ended the coordinator with "
+          f"{proc.returncode}")
+    _card(f"services (d) standalone coordinator child: spawn to listening "
+          f"{fed['coordinator']!r} s (beside the node's restart); "
+          f"{SVC_FED_QUERY} through its Session in {fed_s!r} s equals the "
+          f"embedded coordinator's (max rel diff {err!r}, bytes equal "
+          f"{got == emb})")
+
+
+def _svc_tools(root, acked, state) -> dict:
+    """(c) The tools as CLI children on the card after the SIGTERM, all
+    started at once: verify_index_files and read_data_files for each shard
+    with filesets (exit 0; the rows equal the acknowledged points), and
+    verify_index_files on a clone_fileset copy (host only, in this
+    process) with one flipped byte (exit 1 naming that fileset). Returns
+    the children's kernel launches, summed from their stderr."""
+    from m3_tpu_torch.persist.fs import PersistManager
+    from m3_tpu_torch.tools import fileset_tools as ft
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "node", "data")
+    shards = [s for s in range(SVC_SHARDS)
+              if PersistManager(data).list_filesets(b"default", s)]
+    check(shards, "services (c): no fileset on disk")
+    clone = os.path.join(root, "clone")
+
+    def common(r, s):
+        return ["--root", r, "--namespace", "default", "--shard", str(s)]
+
+    def run_all(cmds):
+        """Start every command at once, each writing to its own file;
+        {key: (exit code, stdout, stderr)}."""
+        procs = {}
+        for key, argv in cmds.items():
+            out = os.path.join(root, "tool-%s-%d.out" % key)
+            with open(out, "w") as fo, open(out + ".err", "w") as fe:
+                procs[key] = (subprocess.Popen(argv, cwd=here, stdout=fo,
+                                               stderr=fe), out)
+        res = {}
+        for key, (p, out) in procs.items():
+            try:
+                p.wait(timeout=SVC_WAIT_S)
+            except subprocess.TimeoutExpired:
+                for q, _ in procs.values():
+                    q.kill()
+                check(False, f"services (c): {key} not within {SVC_WAIT_S} s")
+            res[key] = (p.returncode, open(out).read(),
+                        open(out + ".err").read())
+        return res
+
+    t0 = time.perf_counter()
+    cmds = {}
+    for s in shards:
+        cmds[("verify", s)] = _svc_tool("verify_index_files",
+                                        *common(data, s))
+        cmds[("read", s)] = _svc_tool("read_data_files", *common(data, s))
+    path, = ft.clone_fileset(data, clone, b"default", shards[0],
+                             state["block"] * 10**9)
+    with open(os.path.join(path, "data.bin"), "r+b") as f:
+        f.seek(64)
+        b = f.read(1)
+        f.seek(64)
+        f.write(bytes([b[0] ^ 0x10]))
+    cmds[("verify-clone", shards[0])] = _svc_tool(
+        "verify_index_files", *common(clone, shards[0]))
+    res = run_all(cmds)
+    tools_s = time.perf_counter() - t0
+    launches = {}
+    for key, (_, _, err) in res.items():
+        for k, n in _svc_launches(err.splitlines(), f"tools {key}").items():
+            launches[k] = launches.get(k, 0) + n
+    rows = {}
+    rc, out, err = res.pop(("verify-clone", shards[0]))
+    flipped = json.loads(out) if out else {}
+    check(rc == 1 and [p for p, _ in flipped.get("corrupt", [])] == [path],
+          f"services (c): the flipped clone: exit {rc}, {out[:300]!r} "
+          f"{err[-300:]!r}")
+    for key, (rc, out, err) in res.items():
+        check(rc == 0, f"services (c): {key} exited {rc}: {err[-500:]}")
+        if key[0] == "verify":
+            v = json.loads(out)
+            check(v["ok"] and not v["corrupt"],
+                  f"services (c): shard {key[1]} verify {v}")
+        elif key[0] == "read":
+            for ln in out.splitlines():
+                sid, ts, val = ln.rsplit(" ", 2)
+                r = rows.setdefault(sid.encode(), ([], []))
+                r[0].append(int(ts))
+                r[1].append(float(val))
+    id_of = state["id_of"]
+    check(len(rows) == SVC_SERIES, f"services (c): read {len(rows)} series")
+    for sid, (ts, vals) in rows.items():
+        wt, wv = acked[id_of[sid]]
+        check(ts == wt.tolist() and _bits(vals) == _bits(wv),
+              f"services (c): read_data_files of {sid!r} differs")
+    n_rows = sum(len(r[0]) for r in rows.values())
+    _card(f"services (c) tools: {len(cmds)} CLI children at once in "
+          f"{tools_s!r} s: verify_index_files exits 0 on the {len(shards)} "
+          f"shards with filesets, read_data_files' {n_rows} rows equal the "
+          f"acknowledged points; one flipped byte in a clone_fileset copy: "
+          f"verify_index_files exits 1 naming it "
+          f"({flipped['corrupt'][0][1]!r}); their kernel launches "
+          f"{launches}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ Every file operation persist/fs.py and persist/commitlog.py perform is
 routed through a module-level `_io` that defaults to the passthrough
 `DiskIO` below — one attribute lookup plus one delegating call when no
 injector is installed (zero overhead when off, the faultnet seam
-contract). `m3_tpu.testing.faultfs` swaps in a seeded `FaultIO` that
+contract). `m3_tpu_torch.testing.faultfs` swaps in a seeded `FaultIO` that
 returns bit-flipped/short reads, raises EIO/ENOSPC on writes, lies on
 fsync, and tears `os.replace` — the disk leg of the fault trilogy
 (network: faultnet, crash: kill -9 drill, disk: this).

@@ -692,7 +692,11 @@ def test_forwarded_pipeline_crosses_instances_over_tcp():
                                         _md(ONE_M, agg_id, pipe))
             jagg.add_untimed(JMetricUnion.gauge(b"src.%d" % i, i * 0.5),
                              _jmd("1m:40h", agg_id, jp))
-        clock.advance(2 * 60 * S)
+        # One resolution: only the sources' windows are due, so no rollup
+        # window flushes before all its partials have arrived (a partial
+        # that lands first would split the rollup, as in
+        # test_services_tools.py's multi-server forwarding test).
+        clock.advance(60 * S)
         for agg in aggs.values():
             agg.flush()
         jagg.flush()

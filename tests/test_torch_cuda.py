@@ -1022,3 +1022,38 @@ def test_cluster_on_card_equals_cpu(cuda, tmp_path):
     assert card[1] == host[1] and card[1]
     assert card[2] == card[3] == host[2] == host[3]
     assert card[4].blocks_rebuilt == host[4].blocks_rebuilt == 1
+
+
+def test_run_dbnode_defaults_to_the_card(cuda, fresh_cache, tmp_path):
+    """run_dbnode with no device runs the node and its embedded
+    coordinator on the card: a write_batch routes through K3, the tick's
+    seal packs through K1 and a read of the sealed block decodes through
+    K2, bit for bit the written points."""
+    from m3_tpu_torch.services import load_dict, run_dbnode
+
+    now = {"t": _T0}
+    h = run_dbnode(load_dict({"data_dir": str(tmp_path / "node"),
+                              "num_shards": 4, "coordinator": {}}, "dbnode"),
+                   clock=lambda: now["t"])
+    try:
+        assert h.db.device.type == "cuda"
+        assert h.coordinator.engine.device.type == "cuda"
+        assert h.server.service.device.type == "cuda"
+        ids = [b"svc-%03d" % i for i in range(64)]
+        ck.reset_launch_counts()
+        for j in range(6):
+            now["t"] = _T0 + j * 10**10
+            h.db.write_batch(b"default", ids, np.full(64, now["t"]),
+                             np.arange(64) * 0.5 + j)
+        assert ck.launch_counts()["hash"] >= 6
+        now["t"] = _T0 + _BLOCK + 11 * 60 * 10**9
+        assert h.db.tick()["sealed"] > 0
+        assert ck.launch_counts()["pack"] > 0
+        before = ck.launch_counts()["decode"]
+        for i, sid in enumerate(ids):
+            t, v = h.db.read(b"default", sid, 0, now["t"])
+            assert t.tolist() == [_T0 + j * 10**10 for j in range(6)]
+            assert v.tolist() == [i * 0.5 + j for j in range(6)]
+        assert ck.launch_counts()["decode"] > before
+    finally:
+        h.close()

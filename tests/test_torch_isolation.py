@@ -5,6 +5,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -359,6 +360,34 @@ for closer in (prod.close, consumer.close, rsrv.close, asrv.close, pst.close,
                kvsrv.close):
     closer()
 
+from m3_tpu_torch import nsch
+from m3_tpu_torch.services import load_dict, run_aggregator, run_dbnode
+from m3_tpu_torch.services.run import run_coordinator_standalone, run_kv
+from m3_tpu_torch.tools import fileset_tools
+
+sroot = tempfile.mkdtemp()
+snode = run_dbnode(load_dict({"data_dir": os.path.join(sroot, "n"),
+                              "num_shards": 4, "coordinator": {}}, "dbnode"),
+                   device="cpu")
+sreq = urllib.request.Request(
+    snode.coordinator.endpoint + "/api/v1/json/write", method="POST",
+    data=_json.dumps({"tags": {"__name__": "svc"}, "timestamp": time.time(),
+                      "value": 2.0}).encode(),
+    headers={"Content-Type": "application/json"})
+ok = ok and _json.loads(urllib.request.urlopen(sreq).read())["wrote"] == 1
+ok = ok and snode.coordinator.engine.device.type == "cpu"
+skv = run_kv(load_dict({}, "kv"))
+sagg = run_aggregator(load_dict({"num_shards": 4, "kv_endpoint": skv.endpoint},
+                                "aggregator"), device="cpu")
+ok = ok and sagg.aggregator.device.type == "cpu"
+for closer in (sagg.close, sagg.kv.close, skv.close, snode.close):
+    closer()
+srows = [r for s in range(4)
+         for r in fileset_tools.read_data_files(pm.root, b"d", s, device="cpu")]
+ok = ok and len(srows) == 40 and sorted(r[0] for r in srows) == sorted(dids)
+agent = nsch.Agent(nsch.Workload(cardinality=3), lambda *a: None)
+ok = ok and agent.run_for(6) == 6
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
 cagg = Aggregator(device="cpu")
@@ -378,12 +407,19 @@ for make in (lambda: Engine(DictStorage(series)),
                                  lambda *a: None),
              lambda: NamespaceWatch(ddb, MemStore()),
              lambda: HTTPJSONServer(csvc), lambda: RawTCPServer(cagg),
-             lambda: HTTPAdminServer(cagg)):
+             lambda: HTTPAdminServer(cagg),
+             lambda: run_dbnode(load_dict({"data_dir": os.path.join(
+                 sroot, "refused")}, "dbnode")),
+             lambda: run_aggregator(load_dict({}, "aggregator")),
+             lambda: run_coordinator_standalone(load_dict(
+                 {"kv_endpoint": "127.0.0.1:1"}, "coordinator")),
+             lambda: fileset_tools.read_data_files(pm.root, b"d", 0)):
     try:
         make()
         ok = False
     except RuntimeError:
         pass
+ok = ok and not os.path.exists(os.path.join(sroot, "refused"))
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "m3_tpu"
               or m.startswith("m3_tpu."))
@@ -420,7 +456,12 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     HTTP JSON server, and a collector Reporter's counters over TCP into an
     aggregator whose flush rides m3msg into storage; a namespace watch, an
     HTTP JSON server and the aggregator's raw TCP and admin servers refuse
-    to start over objects placed on a card that is not there."""
+    to start over objects placed on a card that is not there. Then the
+    service assembly: run_dbnode(device="cpu") with a coordinator section
+    taking a JSON write over HTTP, run_kv and run_aggregator over it, a
+    tools read of the durable path's filesets and an nsch agent; run_dbnode
+    (which touches no data dir), run_aggregator, run_coordinator_standalone
+    and fileset_tools.read_data_files refuse to start without a card."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -466,6 +507,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from m3_tpu_torch.metrics.matcher import Matcher, RuleSetStore
     from m3_tpu_torch.parallel import agg_flush
 
+    from m3_tpu_torch.services import load_dict, run_aggregator, run_dbnode
+    from m3_tpu_torch.services.run import run_coordinator_standalone
+    from m3_tpu_torch.tools import fileset_tools
     from m3_tpu_torch.aggregator.server import HTTPAdminServer, RawTCPServer
     from m3_tpu_torch.rpc import HTTPJSONServer, NodeService
     from m3_tpu_torch.storage.namespace_watch import NamespaceWatch
@@ -524,10 +568,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: HTTPJSONServer(placed_svc),
         lambda: RawTCPServer(placed_agg),
         lambda: HTTPAdminServer(placed_agg),
+        lambda: run_dbnode(load_dict({"data_dir": str(tmp_path / "node")},
+                                     "dbnode")),
+        lambda: run_aggregator(load_dict({}, "aggregator")),
+        lambda: run_coordinator_standalone(load_dict(
+            {"kv_endpoint": "127.0.0.1:1"}, "coordinator")),
+        lambda: fileset_tools.read_data_files(str(tmp_path), b"ns", 0),
+        lambda: fileset_tools.verify_index_files(str(tmp_path), b"ns", 0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not (tmp_path / "node").exists()
 
 
 def test_explicit_cuda_request_raises_without_cuda(monkeypatch):
@@ -537,3 +589,83 @@ def test_explicit_cuda_request_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve("cuda")
     assert resolve("cpu").type == "cpu"
+
+
+def test_services_cli_runs_on_the_cpu_or_refuses(tmp_path):
+    """`python -m m3_tpu_torch.services dbnode -f examples/dbnode.yml`
+    without a card exits non-zero with the resolve message and starts
+    nothing; with --device cpu (its data dir under tmp_path) it names the
+    device, serves a health RPC and exits 0 on SIGTERM."""
+    import signal
+    import socket
+
+    from m3_tpu_torch.rpc import wire
+
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    example = os.path.join(ROOT, "examples", "dbnode.yml")
+    res = subprocess.run(
+        [sys.executable, "-m", "m3_tpu_torch.services", "dbnode", "-f",
+         example], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode != 0 and res.stdout == ""
+    assert "no CUDA device" in res.stderr
+    text = open(example).read()
+    text = text.replace("127.0.0.1:9000", "127.0.0.1:0").replace(
+        "/tmp/m3_tpu_data", str(tmp_path / "data"))
+    cfg_path = tmp_path / "dbnode.yml"
+    cfg_path.write_text(text)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "m3_tpu_torch.services", "dbnode", "-f",
+         str(cfg_path), "--device", "cpu"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "embedded coordinator on" in line:
+                break
+        assert lines[0].strip() == "m3_tpu_torch dbnode device cpu", lines
+        listen = next(ln for ln in lines if "dbnode listening on" in ln)
+        host, _, port = listen.rsplit(" ", 1)[-1].strip().rpartition(":")
+        with socket.create_connection((host, int(port)), timeout=30) as sock:
+            sock.settimeout(30)
+            wire.write_frame(sock, {"m": "health", "a": {}, "id": 1})
+            assert wire.read_frame(sock)["ok"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        rest = proc.stdout.read().strip().splitlines()
+        # The last line: the child's kernel launches, none on the CPU.
+        head, _, counts = rest[-1].partition(" kernel launches ")
+        assert head == "m3_tpu_torch dbnode" and json.loads(counts) == {
+            "pack": 0, "decode": 0, "hash": 0, "window": 0}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+
+
+def test_no_string_names_a_reference_module():
+    """No file of the port, and not chip_smoke.py, names a module
+    `m3_tpu.<x>` in a string: no spawned `-m` can run the reference."""
+    import io
+    import re
+    import tokenize
+
+    ref = re.compile(r"(?<![\w/.])m3_tpu\.[A-Za-z_]")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "m3_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    found = []
+    for path in paths:
+        with open(path, "rb") as f:
+            toks = tokenize.tokenize(io.BytesIO(f.read()).readline)
+            found += [(path, t.start[0], t.string) for t in toks
+                      if t.type == tokenize.STRING and ref.search(t.string)]
+    assert len(paths) > 100 and found == []
+    assert ref.search('"m3_tpu.services"') and not ref.search(
+        '"m3_tpu_torch.services"')
