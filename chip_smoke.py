@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
-durability, cluster, coordinator and networked aggregation paths, and its
-service binaries as child processes, on one NVIDIA GPU.
+durability, cluster, coordinator and networked aggregation paths, its
+service binaries as child processes, and its drills, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -197,7 +197,8 @@ Phases (each synchronises the device and fails the run on any error):
               them also the pre-kill db's reads), the batched
               replay equals replay_ref (500,000 entries), and a
               device="cpu" bootstrap gives the same registries and sealed
-              words. (b) config #8's shape as phase 7 (a) writes it, with
+              words. (b) config #8's shape as phase 7 (a) writes it (its
+              series cut to 50,000 for the script's time), with
               the index and the commit log (WRITE_BEHIND) on: tick, flush
               (8 filesets + index segments; ms per fileset), evict, the
               2,000-read mix through the BlockRetriever twice (reads/s,
@@ -350,10 +351,33 @@ Phases (each synchronises the device and fails the run on any error):
               verify_index_files exits 0 and read_data_files' rows equal
               the acknowledged points on each shard, verify_index_files
               exits 1 naming the fileset of a clone with a flipped byte
+  17. harness  the drills of m3_tpu_torch/testing/scenario.py on the card,
+              each held to its own verify(), their data under a temporary
+              directory the phase removes. (a) the kill -9 drill (base
+              variant, seed 7): a dbnode child (python -m
+              m3_tpu_torch.services, no --device) under M3_TPU_LOCKDEP and
+              M3_TPU_RACEWATCH, 150 writes/s open loop, SIGKILLed at its
+              seeded moment, a torn WAL tail and a checkpoint-less
+              fileset injected, restarted: every acked point served,
+              nothing fabricated, the restart within 30 s; the fresh
+              child's first-write latency, the spawn walls and
+              bootstrap_s printed; the restarted child stopped with
+              SIGTERM so that its witnesses dump: zero lockdep cycles,
+              the observed access profiles and racy pairs printed. (b)
+              the churn drill at its defaults (4 nodes, RF=3, 16 shards,
+              48 series, 60 requests/s for 4 s, add/repair/remove/
+              replace under seeded network chaos): every SLO (no acked
+              write lost, no critical probe shed, p99 2 s, bounded gate
+              and queues, converged placement, replica-equal checksums).
+              (c) the disk-fault drill (seed 7): bit rot quarantined,
+              scrub and peer repair, a full disk's read-only posture and
+              its recovery. (d) the compute-fault churn drill (seed 19):
+              faults injected on the guarded seam, every guarded
+              dispatch's outcome explained by its own decisions
 
 Every kernel's launches are counted per path (slice, query, storage,
 flush, graphite, plan, aggregator, durability, cluster, coordinator,
-pipeline, services;
+pipeline, services, harness;
 phase 14 (g) counts in cluster), each count set to 0 just before its
 path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
@@ -361,7 +385,8 @@ the window kernel's count adds its warm-up launch and, per replay, the
 launches its graph holds. A service or tools child counts its own
 launches the same way, from 0 at its start, and prints them as it closes
 ("... kernel launches {...}"); the phase adds what each child printed,
-read after its stop. The SIGKILLed node's launches die with it.
+read after its stop. The SIGKILLed node's launches die with it, in phase
+16 and in phase 17's kill drill.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
@@ -846,6 +871,10 @@ def main() -> int:
     # -- 16. the service binaries as child processes ------------------------
     for name, n in _services_phase().items():
         by_path[name]["services"] = n
+
+    # -- 17. the harnesses: the drills and the witnesses --------------------
+    for name, n in _harness_phase().items():
+        by_path[name]["harness"] = n
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -3307,7 +3336,10 @@ BOOT_SERIES, BOOT_SHARDS, BOOT_WAVES, BOOT_SEED, BOOT_RUNS = (
 # a read at this size on the host of an H100 machine, so all 100,000
 # would take 27 s).
 BOOT_PREKILL_SAMPLE = 5_000
-DUR_GROUPS = 100   # the grp tag of phase 12 (b)'s series: 1,000 series each
+# Phase 12 (b)'s series: config #8's 100,000 cut to 50,000 for the
+# script's time (PERF.md section 4); the grp tag puts 500 in each group.
+DUR_SERIES = 50_000
+DUR_GROUPS = 100
 DUR_QUERIES = ('rate(bench_hot{grp="g07"}[5m])',
                'sum_over_time(bench_hot{grp="g07"}[5m])',
                'sum by (grp) (rate(bench_hot{grp=~"g1."}[5m]))',
@@ -3552,8 +3584,8 @@ def _boot_config12(root: str) -> None:
 
 
 def _flush_evict_restart(root: str) -> dict:
-    """Phase 12 (b): config #8's shape as phase 7 (a) writes it (100,000
-    series in 4 shards, two 2 h blocks of 120 points, seed 53; each
+    """Phase 12 (b): config #8's shape as phase 7 (a) writes it (its
+    100,000 series cut to DUR_SERIES, in 4 shards, two 2 h blocks of 120 points, seed 53; each
     series' value the step's draw plus its index, so rows differ) with the
     namespace index on (tags on the first write) and the commit log on
     (WRITE_BEHIND); tick, flush (8 filesets + index segments), evict, the
@@ -3578,7 +3610,7 @@ def _flush_evict_restart(root: str) -> dict:
 
     step = _Steps("durability (b)")
     ns = b"bench"
-    n = STORE_SERIES
+    n = DUR_SERIES
     rng = np.random.default_rng(STORE_SEED)
     t0 = (1_700_000_000 * 10**9 // BLOCK_NS) * BLOCK_NS
     step_ns = BLOCK_NS // STORE_PPB
@@ -6124,6 +6156,9 @@ def _svc_single_node(ops, ports, root):
     Returns the acknowledged points {i tag: (t, v)} and what (b) needs."""
     node = ops["node"]
     coord = f"http://127.0.0.1:{ports['coord']}"
+    # The node's start-up warm-up (run_dbnode) already dispatched each
+    # codec route once: the checks below count what the work added.
+    prims0 = _svc_primaries(coord)
     wait_s = time.time()
     block, first = _svc_go(wait_s)
     wait_s = time.time() - wait_s
@@ -6176,8 +6211,9 @@ def _svc_single_node(ops, ports, root):
         db.close()
     prims = _svc_primaries(coord)
     for route in ("codec.hash", "codec.encode", "codec.decode", "plan"):
-        check(prims.get(route, 0) > 0,
-              f"services (a): no {route} primary in the child: {prims}")
+        check(prims.get(route, 0) > prims0.get(route, 0),
+              f"services (a): no {route} primary in the child's work: "
+              f"{prims0} at the start, {prims} after")
     _card(f"services (a) dbnode child (pid {node.pid}; the card's compute "
           f"apps (pid, memory) {apps}, this process {os.getpid()}): "
           f"{n} samples in "
@@ -6585,5 +6621,223 @@ def _svc_tools(root, acked, state) -> dict:
     return launches
 
 
+# -- phase 17: the harnesses --------------------------------------------------
+
+HARNESS_KILL_SEED, HARNESS_DISK_SEED, HARNESS_COMPUTE_SEED = 7, 7, 19
+
+
+def _harness_dumps(directory: str, prefix: str) -> list:
+    """The JSON dumps a witness wrote into `directory` (one a process)."""
+    names = sorted(f for f in os.listdir(directory)
+                   if f.startswith(prefix) and f.endswith(".json")) \
+        if os.path.isdir(directory) else []
+    out = []
+    for name in names:
+        with open(os.path.join(directory, name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _harness_kill(root: str) -> dict:
+    """Phase 17 (a): the kill -9 drill at its base variant, its dbnode
+    children on the card under both witnesses. Returns the restarted
+    child's launches (the SIGKILLed child's die with it)."""
+    from m3_tpu_torch.testing import scenario
+
+    ld_dir = os.path.join(root, "lockdep")
+    rw_dir = os.path.join(root, "racewatch")
+    os.makedirs(os.path.join(root, "drill"))
+    t0 = time.perf_counter()
+    drill = scenario.KillRestartScenario(scenario.KillRestartOptions(
+        seed=HARNESS_KILL_SEED, data_dir=os.path.join(root, "drill"),
+        child_env=(("M3_TPU_LOCKDEP", "1"), ("M3_TPU_LOCKDEP_OUT", ld_dir),
+                   ("M3_TPU_RACEWATCH", "1"),
+                   ("M3_TPU_RACEWATCH_OUT", rw_dir))))
+    try:
+        res = drill.verify(drill.run())
+        child = drill.stop_child(timeout_s=120)
+    finally:
+        drill.close()
+    secs = time.perf_counter() - t0
+    check(res.verified_points == res.acked_points > 0,
+          f"harness (a): verified {res.verified_points} of "
+          f"{res.acked_points} acked points")
+    check(res.torn_tail_bytes > 0, "harness (a): no torn tail was injected")
+    budget = drill.opts.restart_budget_s
+    check(all(w <= budget for w in res.restart_walls_s[1:])
+          and all(b <= budget for b in res.bootstrap_s[1:]),
+          f"harness (a): restart {res.restart_walls_s}, bootstrap "
+          f"{res.bootstrap_s} past {budget} s")
+    check(child is not None, "harness (a): the restarted child printed no "
+          "kernel launches as it closed")
+    locks = _harness_dumps(ld_dir, "lockdep-")
+    races = _harness_dumps(rw_dir, "racewatch-")
+    check(locks and races, f"harness (a): witness dumps: {len(locks)} "
+          f"lockdep, {len(races)} racewatch")
+    cycles = [c for d in locks for c in d["cycles"]]
+    check(not cycles, f"harness (a): lockdep cycles {cycles}")
+    edges = sum(len(d["edges"]) for d in locks)
+    observed = sum(d["observed"] for d in races)
+    racy = {a["attr"]: len(a["racy"]) for d in races for a in d["attrs"]
+            if a["racy"]}
+    rep = res.report
+    _card(f"harness (a) kill-restart drill, seed {HARNESS_KILL_SEED}, "
+          f"children on the card: {res.acked_points} points acked, all "
+          f"verified after the SIGKILL and a torn WAL tail of "
+          f"{res.torn_tail_bytes} bytes; the fresh child's first write "
+          f"{res.first_write_s!r} s; spawn to listening "
+          f"{res.restart_walls_s!r} s; bootstrap_s {res.bootstrap_s!r}; "
+          f"outcomes {rep.outcomes()}; {secs!r} s")
+    _card(f"harness (a) witnesses in the restarted child: lockdep "
+          f"{len(locks)} dump(s), {edges} edges, 0 cycles; racewatch "
+          f"{observed} observed access profiles, racy pairs by attribute "
+          f"{racy}; its launches {child}")
+    return child
+
+
+def _harness_churn() -> dict:
+    """Phase 17 (b): ChurnScenario at its defaults on the card, every SLO
+    of its verify(). Returns its warm-up's launches."""
+    from m3_tpu_torch.testing import scenario
+
+    t0 = time.perf_counter()
+    drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions())
+    try:
+        res = drill.verify(drill.run())
+    finally:
+        drill.close()
+    rep = res.report
+    ok = len(rep.select(outcome="ok"))
+    _card(f"harness (b) churn drill at its defaults (4 nodes, RF=3, 16 "
+          f"shards, 48 series, 60 requests/s for 4 s): write p99 "
+          f"{rep.quantile_latency(0.99, kind='write')!r} s, read p99 "
+          f"{rep.quantile_latency(0.99, kind='read')!r} s, ok "
+          f"{ok}/{len(rep.records)}, outcomes {rep.outcomes()}; churn "
+          f"{res.churn_log}; {res.verified_points} acked points verified, "
+          f"{res.checksum_blocks_checked} blocks replica-equal; gate depth "
+          f"{res.max_gate_depth} of {res.gate_capacity}; "
+          f"{time.perf_counter() - t0!r} s")
+    return drill.warm_launches
+
+
+def _harness_disk() -> dict:
+    """Phase 17 (c): the disk-fault drill on the card. Returns its
+    warm-up's launches."""
+    from m3_tpu_torch.testing import scenario
+
+    t0 = time.perf_counter()
+    drill = scenario.DiskFaultScenario(scenario.DiskFaultScenarioOptions(
+        seed=HARNESS_DISK_SEED))
+    try:
+        res = drill.verify(drill.run())
+    finally:
+        drill.close()
+    rep = res.report
+    _card(f"harness (c) disk-fault drill, seed {HARNESS_DISK_SEED}: "
+          f"{res.quarantined_after_faults} filesets quarantined under bit "
+          f"rot, scrub {res.scrub_stats}, {res.quarantined_after_scrub} "
+          f"left; read-only tripped {res.health_tripped}, NORMAL shed "
+          f"{res.normal_shed}, CRITICAL served {res.critical_served}, "
+          f"recovered {res.recovered}; {res.verified_points} acked points "
+          f"verified, {res.filesets_verified} filesets row-verified; write "
+          f"p99 {rep.quantile_latency(0.99, kind='write')!r} s, read p99 "
+          f"{rep.quantile_latency(0.99, kind='read')!r} s; "
+          f"{time.perf_counter() - t0!r} s")
+    return drill.warm_launches
+
+
+def _harness_compute() -> dict:
+    """Phase 17 (d): the compute-fault churn drill on the card: faults
+    injected, every guarded outcome explained by its decisions. Returns
+    its warm-up's launches."""
+    from m3_tpu_torch.testing import scenario
+
+    t0 = time.perf_counter()
+    drill = scenario.ComputeFaultChurnScenario(
+        scenario.ComputeFaultChurnOptions(seed=HARNESS_COMPUTE_SEED))
+    try:
+        res = drill.verify(drill.run())
+    finally:
+        drill.close()
+    seam, audit = drill.compute_seam, drill.audit
+    check(seam.faults_injected > 0 and audit.calls
+          and not audit.unexplained(),
+          "harness (d): compute faults not injected or not explained")
+    kinds = {}
+    for ds in seam.decisions.values():
+        for d in ds:
+            kinds[d] = kinds.get(d, 0) + 1
+    rep = res.report
+    _card(f"harness (d) compute-fault churn drill, seed "
+          f"{HARNESS_COMPUTE_SEED}: {seam.faults_injected} faults injected "
+          f"(decisions {kinds}); {len(audit.calls)} guarded dispatches, "
+          f"{audit.raised()} raised typed, every one explained by its "
+          f"decisions; outcomes {rep.outcomes()}; churn {res.churn_log}, "
+          f"deferred {drill.deferred_log}; {res.verified_points} acked "
+          f"points verified; {time.perf_counter() - t0!r} s")
+    return drill.warm_launches
+
+
+def _harness_phase() -> dict:
+    """Phase 17: the harnesses on the card. (a) the kill -9 drill with its
+    dbnode children on the card under the lockdep and racewatch witnesses;
+    (b) the churn drill at its defaults; (c) the disk-fault drill; (d) the
+    compute-fault churn drill. Returns the kernels' launches over the
+    phase: this process's (the in-process clusters and the drill's
+    sessions; counts set to 0 just before), less the drills' warm-ups,
+    and the restarted child's from its listen line, printed as it closed
+    (the SIGKILLed child's are not seen)."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from m3_tpu_torch.ops import codec_kernels as ck
+    from m3_tpu_torch.ops import window_kernels as wk
+
+    so = ck.BUILD_DIR / "m3_tpu_torch_kernels.so"
+    so_mtime = so.stat().st_mtime_ns if so.exists() else None
+    # The earlier phases' live objects leave the collector's scans, as in
+    # a process of the drills' own: a full collection over them inside a
+    # drill's window would be billed to its p99.
+    gc.collect()
+    gc.freeze()
+    threads = threading.active_count()
+    ck.reset_launch_counts()
+    wk.window_stat.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="m3-harness-")
+    try:
+        child = _harness_kill(root)
+        warm = [_harness_churn(), _harness_disk(), _harness_compute()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.unfreeze()
+    check(so_mtime is None or so.stat().st_mtime_ns == so_mtime,
+          "harness: a child rebuilt the kernels' extension")
+    torch.cuda.synchronize()
+    own = dict(ck.launch_counts(), window=wk.window_stat.launches)
+    # The in-process drills' warm-ups (one write, seal and read each before
+    # the drill's window opens) are start-up work, as a child's are (it
+    # counts from its listen line): the path's count leaves them out.
+    warm_sum = {k: sum(w.get(k, 0) for w in warm) for k in own}
+    launches = {k: own[k] - warm_sum[k] + child.get(k, 0) for k in own}
+    secs = time.perf_counter() - t0
+    _card(f"harness: phase 17 in {secs!r} s, launches {launches} (this "
+          f"process's {own} less its drills' warm-ups {warm_sum}; the "
+          f"restarted child's {child}, counted from its listen line; the "
+          f"SIGKILLed child's are not seen); {threads} threads alive at "
+          f"its start")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash")),
+          f"phase 17 did not launch every kernel of its path: {launches}")
+    phase(f"harness: four drills held to their verify on the card in "
+          f"{secs:.1f}s")
+    return launches
+
+
 if __name__ == "__main__":
     sys.exit(main())
+

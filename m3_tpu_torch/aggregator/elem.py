@@ -12,8 +12,8 @@ single batched reduce (see list.py): host-exact f64 moments, and the
 timer quantile ordering on the device. That keeps the ingest path free of
 device transfers.
 
-Host copy of m3_tpu/aggregator/elem.py without its race-witness
-registration (the port has no utils/racewatch).
+Host copy of m3_tpu/aggregator/elem.py, with its race-witness
+registration.
 """
 
 from __future__ import annotations
@@ -426,3 +426,13 @@ def _stat_value(at: magg.AggType, stats: Dict[str, float]) -> float:
         return math.sqrt(stats["m2"] / (cnt - 1)) if cnt > 1 else 0.0
     raise ValueError(f"no stat mapping for {at}")
 
+
+
+# Runtime race witness registration (utils/racewatch.py), as the
+# reference registers it: _buckets is the lock-free fresh-key fast path;
+# _degraded is lock-protected and rides along as a witnessed locked pair
+# (its cross-thread accesses should share Elem._lock). Both are slots:
+# the witness wraps the slot descriptors.
+from ..utils import racewatch as _racewatch  # noqa: E402
+
+_racewatch.register(Elem, "_buckets", "_degraded")

@@ -9,3 +9,11 @@ def kernel_launches() -> dict:
 
     return dict(codec_kernels.launch_counts(),
                 window=window_kernels.window_stat.launches)
+
+
+def reset_kernel_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from . import codec_kernels, window_kernels
+
+    codec_kernels.reset_launch_counts()
+    window_kernels.window_stat.launches = 0

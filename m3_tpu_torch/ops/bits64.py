@@ -39,8 +39,8 @@ I32 = torch.int32
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """The low 32 bits of an int64 -> int32 with the same bit pattern
     (the reference's pair_to_i32), without relying on narrowing casts."""
-    x = x & M32
-    return (x - ((x >> 31) << 32)).to(I32)
+    x = x & 0xFFFFFFFF
+    return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
 def i32_to_u32(x: torch.Tensor) -> torch.Tensor:
@@ -79,18 +79,29 @@ def low_mask(n) -> torch.Tensor:
 
 def shl64(x: torch.Tensor, s) -> torch.Tensor:
     """Logical left shift; s < 0 or s >= 64 yields 0."""
-    s = torch.as_tensor(s, dtype=I64, device=x.device)
-    out = x << s.clamp(0, 63)
-    return torch.where((s < 0) | (s >= 64), 0, out)
+    return shl64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))
 
 
 def shr64(x: torch.Tensor, s) -> torch.Tensor:
     """Logical right shift; s < 0 or s >= 64 yields 0."""
-    s = torch.as_tensor(s, dtype=I64, device=x.device)
+    return shr64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))
+
+
+# The typed forms below (a tensor count, literal constants, tensors on the
+# left of mixed arithmetic) are the ones TorchScript compiles: the plain
+# decode (codec_kernels.decode_points_plain) calls them from its script.
+
+
+def shl64_t(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    out = x << s.clamp(0, 63)
+    return torch.where((s < 0) | (s >= 64), torch.zeros_like(out), out)
+
+
+def shr64_t(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     sc = s.clamp(0, 63)
     # Clear the sign fill of the arithmetic shift: keep the low 64-sc bits.
-    out = (x >> sc) & ~((-1 << (63 - sc)) << 1)
-    return torch.where((s < 0) | (s >= 64), 0, out)
+    out = (x >> sc) & ~((torch.full_like(sc, -1) << (-sc + 63)) << 1)
+    return torch.where((s < 0) | (s >= 64), torch.zeros_like(out), out)
 
 
 def zigzag64(x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +109,7 @@ def zigzag64(x: torch.Tensor) -> torch.Tensor:
 
 
 def unzigzag64(z: torch.Tensor) -> torch.Tensor:
-    return shr64(z, 1) ^ -(z & 1)
+    return ((z >> 1) & 0x7FFFFFFFFFFFFFFF) ^ (z & 1).neg()
 
 
 # ---------------------------------------------------------------------------

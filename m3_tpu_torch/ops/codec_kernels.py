@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import threading
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -141,145 +142,188 @@ pack_chunks.launches = 0
 # K2: decode
 # ---------------------------------------------------------------------------
 
-# payload bits by leading-ones count of the timestamp / int-value prefix
-_TS_PAYLOAD = (0, 4, 7, 9, 12, 16, 20, 32)
-_INT_PAYLOAD = (0, 4, 7, 12, 20, 32, 64)
+
+def _read64(w: torch.Tensor, three: torch.Tensor,
+            pos: torch.Tensor) -> torch.Tensor:
+    """The 64 bits at each row's bit cursor `pos` of the u32 words `w`
+    ([N, mw], int64 in [0, 2^32)); `three` is arange(3). The three words
+    under the cursor come in one gather, each index clamped to [0, mw - 1]
+    on its own, as tsz._take_word clamps it."""
+    idx = ((pos >> 5).unsqueeze(1) + three).clamp(0, w.shape[1] - 1)
+    g = torch.gather(w, 1, idx)
+    bi = pos & 31
+    a = (g[:, 0] << 32) | g[:, 1]
+    return (a << bi) | (g[:, 2] >> (-bi + 32))
 
 
 class _Reader:
-    """Bit reader over [N, mw] word rows: the word index is clamped to
-    [0, mw - 1] per logical word, as tsz._take_word does."""
+    """Bit reader over [N, mw] word rows (_read64)."""
 
     def __init__(self, words: torch.Tensor):
         self.words = b64.i32_to_u32(words)
-        self.mw = words.shape[1]
-
-    def _word(self, wi):
-        idx = wi.clamp(0, self.mw - 1)
-        return torch.gather(self.words, 1, idx[:, None])[:, 0]
+        self._three = torch.arange(3, dtype=I64, device=words.device)
 
     def read64(self, pos):
-        wi = pos >> 5
-        bi = pos & 31
-        a = (self._word(wi) << 32) | self._word(wi + 1)
-        return (a << bi) | (self._word(wi + 2) >> (32 - bi))
+        return _read64(self.words, self._three, pos)
 
 
-def _hi32(x):
-    return (x >> 32) & M32
+def _hi32(x: torch.Tensor) -> torch.Tensor:
+    return (x >> 32) & 0xFFFFFFFF
 
 
-def _leading_ones32(x):
-    return b64.clz32(~x & M32)
+def _leading_ones32(x: torch.Tensor) -> torch.Tensor:
+    # 32 - the bit length of the complement; frexp's exponent of a value
+    # below 2^32, held exactly in f64, is its bit length (0 for 0).
+    _m, e = torch.frexp((~x & 0xFFFFFFFF).to(torch.float64))
+    return -e.to(torch.int64) + 32
 
 
-def _sext(v, nbits):
-    """Sign-extend the low nbits (1..32) of the u32 v -> int64."""
-    sb = 1 << (nbits - 1)
-    return (v ^ sb) - sb
-
-
-def decode_points_plain(words, npoints, window: int):
-    """The _decode_header/_decode_step twin: a Python loop over the points
-    of vectorized torch ops (all series in lockstep). Returns (dt int32
-    [N, W], ticks int64 [N, W], value bits int64 [N, W], flags int32 [N])."""
+def _decode_steps(words: torch.Tensor, npoints: torch.Tensor, window: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
     n = words.shape[0]
     dev = words.device
-    rd = _Reader(words)
-    ts_payload = torch.tensor(_TS_PAYLOAD, dtype=I64, device=dev)
-    int_payload = torch.tensor(_INT_PAYLOAD, dtype=I64, device=dev)
-    zero = torch.zeros(n, dtype=I64, device=dev)
-    npts = npoints.to(I64)
+    i64 = torch.int64
+    w = words.to(i64) & 0xFFFFFFFF
+    three = torch.arange(3, dtype=i64, device=dev)
+    ts_prefix = torch.tensor([1, 2, 3, 4, 5, 6, 7, 7], dtype=i64, device=dev)
+    ts_payload = torch.tensor([0, 4, 7, 9, 12, 16, 20, 32], dtype=i64,
+                              device=dev)
+    ts_consumed = ts_prefix + ts_payload
+    ts_sign = torch.tensor([1, 8, 64, 256, 2048, 32768, 524288, 2147483648],
+                           dtype=i64, device=dev)
+    int_prefix = torch.tensor([1, 2, 3, 4, 5, 6, 6], dtype=i64, device=dev)
+    int_payload = torch.tensor([0, 4, 7, 12, 20, 32, 64], dtype=i64,
+                               device=dev)
+    int_consumed = int_prefix + int_payload
+    zero = torch.zeros(n, dtype=i64, device=dev)
+    npts = npoints.to(i64)
 
-    b0 = _hi32(rd.read64(zero))
+    # the header: flags, t0, the regular delta, the first value
+    b0 = _hi32(_read64(w, three, zero))
     int_mode = (b0 >> 31) == 1
     ts_regular = ((b0 >> 27) & 1) == 1
-    t0c = (b0 >> 26) & 1
-    vc = (b0 >> 25) & 1
-    dc = (b0 >> 24) & 1
-    nt0 = 32 + 32 * t0c
-    t0 = b64.unzigzag64(b64.shr64(rd.read64(zero + 8), 64 - nt0))
-    pos = 8 + nt0
-    nd = torch.where(ts_regular, 8 + 24 * dc, 0)
-    dzz = b64.shr64(rd.read64(pos), 64 - nd)
-    delta0 = torch.where(ts_regular, b64.u32_to_i32(b64.unzigzag64(dzz)).to(I64), 0)
+    nt0 = ((b0 >> 26) & 1) * 32 + 32
+    t0 = b64.unzigzag64(b64.shr64_t(_read64(w, three, zero + 8), -nt0 + 64))
+    pos = nt0 + 8
+    nd = torch.where(ts_regular, ((b0 >> 24) & 1) * 24 + 8, zero)
+    dzz = b64.shr64_t(_read64(w, three, pos), -nd + 64)
+    delta0 = torch.where(ts_regular, b64.u32_to_i32(b64.unzigzag64(dzz)).to(i64),
+                         zero)
     pos = pos + nd
-    nv = torch.where(int_mode, 32 + 32 * vc, 64)
-    vraw = b64.shr64(rd.read64(pos), 64 - nv)
+    nv = torch.where(int_mode, ((b0 >> 25) & 1) * 32 + 32, zero + 64)
+    vraw = b64.shr64_t(_read64(w, three, pos), -nv + 64)
     v0 = torch.where(int_mode, b64.unzigzag64(vraw), vraw)
     pos = pos + nv
 
-    dt = torch.zeros((n, window), dtype=I32, device=dev)
-    ts = torch.empty((n, window), dtype=I64, device=dev)
-    vals = torch.empty((n, window), dtype=I64, device=dev)
+    dt = torch.zeros((n, window), dtype=torch.int32, device=dev)
+    ts = torch.empty((n, window), dtype=i64, device=dev)
+    vals = torch.empty((n, window), dtype=i64, device=dev)
     ts[:, 0] = t0
     vals[:, 0] = v0
 
-    prev_delta = torch.where(ts_regular, delta0, 0)
+    prev_delta = torch.where(ts_regular, delta0, zero)
     pvd = zero
     pv = v0
     tick = t0
-    la = ma = lb = mb = torch.full((n,), -1, dtype=I64, device=dev)
-    for i in range(1, window):
-        t64 = rd.read64(pos)
+    la = torch.full((n,), -1, dtype=i64, device=dev)
+    ma = la
+    lb = la
+    mb = la
+    # A step at or past every row's npoints changes nothing (no row is
+    # active): stop there and fill the rest as those steps would have.
+    stop = 1
+    if n > 0:
+        stop = min(window, int(npts.max()))
+    for i in range(1, stop):
+        # the timestamp code: delta-of-delta, sign-extended
+        t64 = _read64(w, three, pos)
         ones_t = _leading_ones32(_hi32(t64)).clamp(max=7)
-        is0 = ones_t == 0
-        plen = torch.where(is0, 1, torch.where(ones_t <= 5, ones_t + 1, 7))
         nbits = ts_payload[ones_t]
-        pw = _hi32(t64 << plen)
-        pay = pw >> (32 - nbits)
-        dod = torch.where(is0 | ts_regular, 0, _sext(pay, nbits.clamp(min=1)))
-        delta = b64.u32_to_i32(prev_delta + dod).to(I64)
-        pos1 = pos + torch.where(ts_regular, 0,
-                                 torch.where(is0, 1, plen + nbits))
+        pay = _hi32(t64 << ts_prefix[ones_t]) >> (-nbits + 32)
+        sign = ts_sign[ones_t]
+        dod = torch.where((ones_t == 0) | ts_regular, zero, (pay ^ sign) - sign)
+        delta = b64.u32_to_i32(prev_delta + dod).to(i64)
+        pos1 = pos + torch.where(ts_regular, zero, ts_consumed[ones_t])
 
-        cf = _hi32(rd.read64(pos1))
+        # the value code's control bits
+        cf = _hi32(_read64(w, three, pos1))
         fxor0 = (cf >> 31) == 0
         fa = (cf >> 30) == 2
         fb = (cf >> 29) == 6
-        frw = ~fxor0 & ~fa & ~fb
+        frw = ~(fxor0 | fa | fb)
         lead_n = (cf >> 23) & 63
         mlen_n = ((cf >> 17) & 63) + 1
-        xa = b64.shl64(b64.shr64(rd.read64(pos1 + 2), 64 - ma), 64 - la - ma)
-        xb = b64.shl64(b64.shr64(rd.read64(pos1 + 3), 64 - mb), 64 - lb - mb)
-        xw = b64.shl64(b64.shr64(rd.read64(pos1 + 15), 64 - mlen_n),
-                       64 - lead_n - mlen_n)
-        xor = torch.where(fxor0, 0, torch.where(fa, xa, torch.where(fb, xb, xw)))
-        fval = pv ^ xor
-        fconsumed = torch.where(fxor0, 1, torch.where(
-            fa, 2 + ma, torch.where(fb, 3 + mb, 15 + mlen_n)))
-        la2 = torch.where(frw, lead_n, la)
-        ma2 = torch.where(frw, mlen_n, ma)
-        lb2 = torch.where(frw, la, lb)
-        mb2 = torch.where(frw, ma, mb)
-
         ones_i = _leading_ones32(cf).clamp(max=6)
-        iz = ones_i == 0
-        iplen = torch.where(iz, 1, torch.where(ones_i <= 4, ones_i + 1, 6))
+        # the float field's offset, width and leading zeros for its code
+        off = torch.where(fa, zero + 2, torch.where(fb, zero + 3, zero + 15))
+        m = torch.where(fa, ma, torch.where(fb, mb, mlen_n))
+        lz = torch.where(fa, la, torch.where(fb, lb, lead_n))
         inb = int_payload[ones_i]
-        zz = b64.shr64(rd.read64(pos1 + iplen), 64 - inb)
-        vdod = torch.where(iz, 0, b64.unzigzag64(zz))
+
+        # the value field, read once at the row's own position and width
+        at = pos1 + torch.where(int_mode, int_prefix[ones_i], off)
+        field = b64.shr64_t(_read64(w, three, at),
+                         -torch.where(int_mode, inb, m) + 64)
+        xor = torch.where(fxor0, zero, b64.shl64_t(field, -lz - m + 64))
+        fval = pv ^ xor
+        fconsumed = torch.where(fxor0, zero + 1, off + m)
+        vdod = torch.where(ones_i == 0, zero, b64.unzigzag64(field))
         nvd = pvd + vdod
         ival = pv + nvd
-        iconsumed = torch.where(iz, 1, iplen + inb)
 
-        active = i < npts
+        active = npts > i
         val = torch.where(int_mode, ival, fval)
-        pos2 = pos1 + torch.where(int_mode, iconsumed, fconsumed)
+        pos2 = pos1 + torch.where(int_mode, int_consumed[ones_i], fconsumed)
         pos = torch.where(active, pos2, pos)
-        delta_o = torch.where(active, delta, 0)
+        delta_o = torch.where(active, delta, zero)
         pv = torch.where(active, val, pv)
         prev_delta = torch.where(active, delta, prev_delta)
         pvd = torch.where(active & int_mode, nvd, pvd)
-        la = torch.where(active, la2, la)
-        ma = torch.where(active, ma2, ma)
-        lb = torch.where(active, lb2, lb)
-        mb = torch.where(active, mb2, mb)
+        rw = active & frw
+        la_next = torch.where(rw, lead_n, la)
+        ma_next = torch.where(rw, mlen_n, ma)
+        lb = torch.where(rw, la, lb)
+        mb = torch.where(rw, ma, mb)
+        la = la_next
+        ma = ma_next
         tick = tick + delta_o
-        dt[:, i] = delta_o.to(I32)
+        dt[:, i] = delta_o.to(torch.int32)
         ts[:, i] = tick
         vals[:, i] = pv
+    if stop < window:
+        lo = max(stop, 1)
+        ts[:, lo:] = tick.unsqueeze(1).expand(n, window - lo)
+        vals[:, lo:] = pv.unsqueeze(1).expand(n, window - lo)
     return dt, ts, vals, b64.u32_to_i32(b0 >> 24)
+
+
+_DECODE_SCRIPT = None
+_DECODE_SCRIPT_LOCK = threading.Lock()
+
+
+def decode_points_plain(words, npoints, window: int):
+    """The _decode_header/_decode_step twin: a loop over the points of
+    vectorized torch ops (all series in lockstep). Returns (dt int32
+    [N, W], ticks int64 [N, W], value bits int64 [N, W], flags int32 [N]).
+
+    Each step reads three 64-bit windows: the timestamp code, the value
+    code's control bits, and the value field. The field is read once for
+    every row at the position and width its own mode picks (the int
+    payload, or the XOR field of a reuse-A, reuse-B or rewrite code), and
+    the code lengths come from tables indexed by the leading-ones count.
+
+    The loop is compiled once by TorchScript and runs as one call. Run
+    from Python, every torch op releases and retakes the interpreter lock:
+    beside a node's server threads on a busy host, those handoffs made a
+    plain decode take many times its own CPU time, and a read's latency
+    with it (the CPU drills' read p99 passed their 2 s bound)."""
+    global _DECODE_SCRIPT
+    if _DECODE_SCRIPT is None:
+        with _DECODE_SCRIPT_LOCK:
+            if _DECODE_SCRIPT is None:
+                _DECODE_SCRIPT = torch.jit.script(_decode_steps)
+    return _DECODE_SCRIPT(words, npoints, int(window))
 
 
 def decode_points(words, npoints, window: int):

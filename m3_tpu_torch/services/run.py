@@ -32,10 +32,11 @@ from ..cluster.services import LeaderService
 from ..device import resolve
 from ..parallel.sharding import ShardSet
 from ..persist.commitlog import CommitLog
+from ..ops import reset_kernel_launches
 from ..persist.fs import PersistManager
 from ..query.promql import parse_duration_ns
 from ..rpc.node_server import NodeServer, NodeService
-from ..storage.database import Database
+from ..storage.database import Database, warm_up
 from ..storage.namespace import NamespaceOptions
 from .config import (
     AggregatorConfig,
@@ -180,6 +181,11 @@ def run_dbnode(cfg: DBNodeConfig, clock=None, *, device=None) -> DBNodeHandle:
             print(f"dbnode bootstrap note: {note}", flush=True)
     else:
         db.mark_bootstrapped()
+    # Nothing cold for a client's first write (warm_up). Its launches are
+    # start-up work: the node's counts start at the listen line.
+    warm_up(db.device, next(iter(db.namespaces.values())).opts
+            if db.namespaces else None)
+    reset_kernel_launches()
     host, port = _host_port(cfg.listen_address)
     service = NodeService(db, device=db.device)
     server = NodeServer(service, host=host, port=port).start()

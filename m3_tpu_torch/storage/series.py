@@ -6,8 +6,8 @@ shard_map_gen.go). In the columnar design, per-series state collapses to a
 dense int32 index used across buffer columns and block rows; the registry
 is the only id-keyed structure on the hot path.
 
-Host copy of m3_tpu/storage/series.py without the race-witness
-registration (the reference's utils/racewatch.py is not ported)."""
+Host copy of m3_tpu/storage/series.py, with its race-witness
+registration."""
 
 from __future__ import annotations
 
@@ -153,3 +153,11 @@ def charge_read(n_series: int = 0, n_points: int = 0, n_bytes: int = 0):
     if n_bytes:
         xlimits.charge("bytes_read", n_bytes)
 
+
+
+# Runtime race witness registration (utils/racewatch.py), as the
+# reference registers it: the registry's lock-free append-before-publish
+# protocol stays instrumented, so it is verified dynamically.
+from ..utils import racewatch as _racewatch  # noqa: E402
+
+_racewatch.register(SeriesRegistry, "_index", "_ids", "_tags")

@@ -25,7 +25,12 @@ within the compiled route's bound of the data could cross them.
 For the coordinator: serve_corpus builds the reference serving
 benchmark's counters (bench.py bench_query_serve_e2e) and rules_corpus
 the downsample benchmark's rule set and samples (bench.py
-_rules_corpus)."""
+_rules_corpus).
+
+The package also exports what the reference's m3_tpu/testing does: the
+in-process cluster (ClusterHarness, ClusterNode, make_node_server), the
+network fault plane (FaultPlan, FaultProxy) and the churn drill
+(ChurnScenario, ChurnScenarioOptions, ScenarioResult, WriteLedger)."""
 
 from __future__ import annotations
 
@@ -441,3 +446,13 @@ def rules_corpus(n_metrics: int, n_mapping: int, n_rollup: int,
                 b"endpoint": b"e%02d" % (i % 16)}
         samples.append((tags, t0, float(i % 97) + 0.5, types[i % 3]))
     return rs, samples
+
+
+from .cluster import ClusterHarness, ClusterNode, make_node_server  # noqa: E402
+from .faultnet import FaultPlan, FaultProxy  # noqa: E402
+from .scenario import (  # noqa: E402
+    ChurnScenario,
+    ChurnScenarioOptions,
+    ScenarioResult,
+    WriteLedger,
+)

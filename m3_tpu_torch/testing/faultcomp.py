@@ -51,7 +51,8 @@ import torch
 from ..parallel import guard
 
 __all__ = ["ComputeFaultPlan", "FaultComp", "NO_FAULT", "install",
-           "uninstall", "injected", "expected_outcome", "unexplained"]
+           "uninstall", "injected", "expected_outcome", "unexplained",
+           "DispatchAudit"]
 
 NO_FAULT = "ok"
 
@@ -149,6 +150,9 @@ class FaultComp(guard.DispatchSeam):
         self._calls: Dict[str, int] = {}
         self.decisions: Dict[str, List[str]] = {}
         self.faults_injected = 0
+        # Per thread, while a DispatchAudit follows this thread's
+        # outermost dispatch: the decisions it drew, per route.
+        self._tls = threading.local()
 
     def call(self, route: str, fn):
         if not self.plan.matches(route):
@@ -160,6 +164,9 @@ class FaultComp(guard.DispatchSeam):
             self.decisions.setdefault(route, []).append(d)
             if d != NO_FAULT:
                 self.faults_injected += 1
+        drawn = getattr(self._tls, "drawn", None)
+        if drawn is not None:
+            drawn.setdefault(route, []).append(d)
         # Apply OUTSIDE the lock: fn may sleep or dispatch a nested route.
         where = f"injected (route={route}, index={index})"
         if d == "compile_fail":
@@ -244,6 +251,70 @@ def unexplained(drawn: Dict[str, List[str]], err) -> "str | None":
         return (f"raised {type(err).__name__} ({err.detail[:80]}) on "
                 f"{err.route} but drew {ds}")
     return None
+
+
+class DispatchAudit:
+    """Every outermost guarded dispatch while installed: its route, the
+    decisions it drew on its own thread (nested routes included), and how
+    it ended (None: answered; else the exception). A dispatch runs on one
+    thread from start to end, so the audit attributes each decision to
+    its own call exactly, however many threads dispatch at once (`mark`
+    and `since` cannot under concurrency). `unexplained()` lists the
+    calls whose outcome their decisions do not explain; a raise that is
+    not a ComputeError is never explained.
+
+    Installing replaces `guard.dispatch` (every route calls it through
+    the module); `uninstall` puts the guard's own back."""
+
+    def __init__(self, seam: FaultComp):
+        self.seam = seam
+        self._lock = threading.Lock()
+        self.calls: List[Tuple[str, Dict[str, List[str]], object]] = []
+        self._real = None
+
+    def install(self) -> "DispatchAudit":
+        real = self._real = guard.dispatch
+        tls = self.seam._tls
+
+        def audited(route, primary, **kw):
+            if getattr(tls, "drawn", None) is not None:
+                return real(route, primary, **kw)  # nested: the outer logs
+            tls.drawn = {}
+            err = None
+            try:
+                return real(route, primary, **kw)
+            except Exception as exc:
+                err = exc
+                raise
+            finally:
+                drawn, tls.drawn = tls.drawn, None
+                with self._lock:
+                    self.calls.append((route, drawn, err))
+
+        guard.dispatch = audited
+        return self
+
+    def uninstall(self) -> None:
+        if self._real is not None:
+            guard.dispatch = self._real
+            self._real = None
+
+    def raised(self) -> int:
+        with self._lock:
+            return sum(1 for _r, _d, err in self.calls if err is not None)
+
+    def unexplained(self) -> List[str]:
+        with self._lock:
+            calls = list(self.calls)
+        out = []
+        for route, drawn, err in calls:
+            if err is not None and not isinstance(err, guard.ComputeError):
+                out.append(f"{route}: untyped {type(err).__name__}: {err}")
+                continue
+            why = unexplained(drawn, err)
+            if why is not None:
+                out.append(f"{route}: {why}")
+        return out
 
 
 # ------------------------------------------------------------ installation

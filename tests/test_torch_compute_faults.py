@@ -9,18 +9,20 @@ to "the exact answer of a clean call, or a typed raise", never a corrupted
 output; on the CPU the primary is the plain version, and the guard still
 types and counts.
 
-Cases of the reference's tests/test_compute_faults.py that do not apply,
-and why:
+Cases of the reference's tests/test_compute_faults.py that live elsewhere
+or do not apply, and why:
   * the fallback-equality campaigns (answers served by the XLA twin, the
     host codec or the eager path): the port has no fallback; each is
     replaced by an exact-or-typed-raise campaign over the same route;
   * the kill switch (`set_disabled`): struck with the fallback it chose;
   * the plan route (compiled plans, their quarantine and EXPLAIN
-    surface): the plan compiler is not ported yet (ROADMAP A11);
+    surface): its campaigns are in tests/test_torch_plan_compile.py;
+  * the aggregator flush (`agg_flush`): its campaign is in
+    tests/test_torch_agg_flush.py;
   * the mesh flush encode (all-or-nothing `flush_encode`): the mesh seal
-    is not ported yet (A14);
-  * the aggregator flush (`agg_flush`): not ported yet (A12);
-  * the churn composition drill: its scenario harness is not ported."""
+    is not ported yet (multi-device, the last slice);
+  * the churn composition drill (TestComputeFaultChurn): in
+    tests/test_torch_scenario.py, over the port's ComputeFaultChurnScenario."""
 
 import inspect
 import subprocess

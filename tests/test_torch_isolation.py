@@ -388,6 +388,36 @@ ok = ok and len(srows) == 40 and sorted(r[0] for r in srows) == sorted(dids)
 agent = nsch.Agent(nsch.Workload(cardinality=3), lambda *a: None)
 ok = ok and agent.run_for(6) == 6
 
+from m3_tpu_torch.testing import loadgen, scenario
+from m3_tpu_torch.utils import lockdep, racewatch
+
+lgr = loadgen.LoadGen(loadgen.LoadSchedule(
+    seed=1, base_rate=40, phases=(loadgen.Phase("p", 0.1, 1.0),))).run(
+        lambda kind: None)
+ok = ok and len(lgr.records) == 4 and lgr.outcomes() == {"ok": 4}
+lg = lockdep.LockdepGraph()
+la, lb = object(), object()
+for x, y in ((la, lb), (lb, la)):
+    lg.on_acquire("A" if x is la else "B", x, False, "s")
+    lg.on_acquire("A" if y is la else "B", y, False, "s")
+    lg.on_release("A", la)
+    lg.on_release("B", lb)
+ok = ok and len(lg.cycles) == 1 and not lockdep.installed()
+ok = ok and len(racewatch.racy_pairs([
+    {"thread": 1, "locks": [], "write": True},
+    {"thread": 2, "locks": [], "write": False}])) == 1
+drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions(
+    seed=13, duration_s=0.3, base_rate=20, n_series=8, num_shards=4,
+    device="cpu"))
+try:
+    res = drill.verify(drill.run())
+    ok = ok and res.verified_points > 0
+finally:
+    drill.close()
+kd = scenario.KillRestartScenario(scenario.KillRestartOptions(device="cpu"))
+ok = ok and kd.argv()[1:3] == ["-m", "m3_tpu_torch.services"]
+kd.close()
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
 cagg = Aggregator(device="cpu")
@@ -413,7 +443,12 @@ for make in (lambda: Engine(DictStorage(series)),
              lambda: run_aggregator(load_dict({}, "aggregator")),
              lambda: run_coordinator_standalone(load_dict(
                  {"kv_endpoint": "127.0.0.1:1"}, "coordinator")),
-             lambda: fileset_tools.read_data_files(pm.root, b"d", 0)):
+             lambda: fileset_tools.read_data_files(pm.root, b"d", 0),
+             lambda: scenario.ChurnScenario(),
+             lambda: scenario.ComputeFaultChurnScenario(),
+             lambda: scenario.DiskFaultScenario(),
+             lambda: scenario.KillRestartScenario(scenario.KillRestartOptions(
+                 data_dir=os.path.join(sroot, "refused")))):
     try:
         make()
         ok = False
@@ -461,7 +496,11 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     taking a JSON write over HTTP, run_kv and run_aggregator over it, a
     tools read of the durable path's filesets and an nsch agent; run_dbnode
     (which touches no data dir), run_aggregator, run_coordinator_standalone
-    and fileset_tools.read_data_files refuse to start without a card."""
+    and fileset_tools.read_data_files refuse to start without a card. Then
+    the harnesses: an open-loop LoadGen run, a lockdep graph closing a
+    cycle, a racy pair, a small churn drill held to its verify, and the
+    kill drill's child command line; the four drills refuse to start
+    without a card."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -513,6 +552,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from m3_tpu_torch.aggregator.server import HTTPAdminServer, RawTCPServer
     from m3_tpu_torch.rpc import HTTPJSONServer, NodeService
     from m3_tpu_torch.storage.namespace_watch import NamespaceWatch
+    from m3_tpu_torch.testing import scenario
+    from m3_tpu_torch.rpc import node_server
+    from m3_tpu_torch.testing import faultnet
+
+    # The drills must refuse before they spawn a child or open a listener.
+    started = []
+    monkeypatch.setattr(scenario.subprocess, "Popen",
+                        lambda *a, **k: started.append("spawn"))
+    monkeypatch.setattr(node_server.NodeServer, "__init__",
+                        lambda self, *a, **k: started.append("listen"))
+    monkeypatch.setattr(faultnet.FaultProxy, "__init__",
+                        lambda self, *a, **k: started.append("proxy"))
 
     placed = Db(ShardSet(4), device="cpu")
     placed_svc = NodeService(placed, device="cpu")
@@ -575,11 +626,20 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             {"kv_endpoint": "127.0.0.1:1"}, "coordinator")),
         lambda: fileset_tools.read_data_files(str(tmp_path), b"ns", 0),
         lambda: fileset_tools.verify_index_files(str(tmp_path), b"ns", 0),
+        lambda: scenario.ChurnScenario(),
+        lambda: scenario.ChurnScenario(scenario.ChurnScenarioOptions(
+            seed=13, n_series=8)),
+        lambda: scenario.ComputeFaultChurnScenario(),
+        lambda: scenario.DiskFaultScenario(),
+        lambda: scenario.KillRestartScenario(),
+        lambda: scenario.KillRestartScenario(scenario.KillRestartOptions(
+            data_dir=str(tmp_path / "drill"))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "node").exists()
+    assert not (tmp_path / "drill").exists() and started == []
 
 
 def test_explicit_cuda_request_raises_without_cuda(monkeypatch):
@@ -651,7 +711,9 @@ def test_services_cli_runs_on_the_cpu_or_refuses(tmp_path):
 
 def test_no_string_names_a_reference_module():
     """No file of the port, and not chip_smoke.py, names a module
-    `m3_tpu.<x>` in a string: no spawned `-m` can run the reference."""
+    `m3_tpu.<x>` in a string: no spawned `-m` can run the reference. The
+    scan covers the modules that spawn children (em, the kill drill), and
+    the kill drill's child runs the port's services."""
     import io
     import re
     import tokenize
@@ -667,5 +729,34 @@ def test_no_string_names_a_reference_module():
             found += [(path, t.start[0], t.string) for t in toks
                       if t.type == tokenize.STRING and ref.search(t.string)]
     assert len(paths) > 100 and found == []
+    spawners = [os.path.join(ROOT, "m3_tpu_torch", *p) for p in (
+        ("em.py",), ("testing", "scenario.py"))]
+    assert all(p in paths for p in spawners)
+    from m3_tpu_torch.testing import scenario
+
+    drill = scenario.KillRestartScenario(
+        scenario.KillRestartOptions(device="cpu"))
+    try:
+        assert drill.argv()[1:4] == ["-m", "m3_tpu_torch.services", "dbnode"]
+    finally:
+        drill.close()
     assert ref.search('"m3_tpu.services"') and not ref.search(
         '"m3_tpu_torch.services"')
+
+
+def test_chip_smoke_defines_every_phase_before_it_runs():
+    """chip_smoke.py runs main() under its `if __name__ == "__main__"`
+    block: every function it defines must come before that block, or the
+    script dies with a NameError at the first phase defined after it."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    main_at = next(i for i, node in enumerate(tree.body)
+                   if isinstance(node, ast.If)
+                   and "__main__" in ast.unparse(node.test))
+    late = [ast.unparse(node)[:60] for node in tree.body[main_at + 1:]]
+    assert late == [], late
+    defined = {node.name for node in tree.body[:main_at]
+               if isinstance(node, ast.FunctionDef)}
+    assert {"main", "_services_phase", "_harness_phase"} <= defined
