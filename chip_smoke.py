@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ingest, read, query, aggregation,
 durability, cluster, coordinator and networked aggregation paths, its
-service binaries as child processes, and its drills, on one NVIDIA GPU.
+service binaries as child processes, its drills and its multi-device
+layer, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
 
@@ -198,7 +199,7 @@ Phases (each synchronises the device and fails the run on any error):
               replay equals replay_ref (500,000 entries), and a
               device="cpu" bootstrap gives the same registries and sealed
               words. (b) config #8's shape as phase 7 (a) writes it (its
-              series cut to 50,000 for the script's time), with
+              series cut to 25,000 for the script's time), with
               the index and the commit log (WRITE_BEHIND) on: tick, flush
               (8 filesets + index segments; ms per fileset), evict, the
               2,000-read mix through the BlockRetriever twice (reads/s,
@@ -233,10 +234,10 @@ Phases (each synchronises the device and fails the run on any error):
               (writes/s), ticked (K1), 2 more points into the buffers; a
               fetch_tagged of every series (the sealed tiles through K2,
               plus the buffer sidecar) equals each node's Database.read;
-              six rate / *_over_time / sum queries over
+              three rate / *_over_time / sum queries over
               SessionStorage(session) equal the same queries over node0's
-              LocalStorage (K4 inside the plan graphs); two of them again
-              from an empty plan cache (a CUDA-graph capture each) while a
+              LocalStorage (K4 inside the plan graphs); one of them again
+              from an empty plan cache (a CUDA-graph capture) while a
               second thread writes through the session; node2 taken away
               through its FaultProxy: MAJORITY writes acknowledge,
               MAJORITY reads equal node0's reads, a read at ALL raises
@@ -267,7 +268,7 @@ Phases (each synchronises the device and fails the run on any error):
               and the plan captures), within the compiled-route bounds of
               a device="cpu" engine over the same corpus, its
               render_result_ref bytes what every HTTP response must
-              equal; over HTTP 6 rounds of replays (p50, p99, wire
+              equal; over HTTP 3 rounds of replays (p50, p99, wire
               bytes), a traced round (the card's busy share), 4 threads
               sending the instant vector at once; K2, K4 launches and
               graph replays. (c) 10,000 carbon paths x 15 points through
@@ -275,7 +276,7 @@ Phases (each synchronises the device and fails the run on any error):
               GraphiteEngine on the card and the CPU (rtol 1e-5, atol
               1e-8), 2 finds. (d) bench_downsample_rules' rule set (801
               mapping and 200 rollup rules with a DROP_MUST class) over
-              100,000 of its metrics, published through the KV
+              50,000 of its metrics (cut from 100,000), published through the KV
               RuleSetStore, a cold and a warm pass through
               DownsamplerAndWriter.write_batch (metrics/s), the flush into
               agg_1m and agg_5m (agg_flush, K3); the write_ref oracle on
@@ -374,10 +375,25 @@ Phases (each synchronises the device and fails the run on any error):
               its recovery. (d) the compute-fault churn drill (seed 19):
               faults injected on the guarded seam, every guarded
               dispatch's outcome explained by its own decisions
+  18. mesh     the multi-device layer on the card split four ways
+              (device.attach([cuda:0] * 4), a (2, 2) shard x time mesh),
+              each split held against the single-device call: (a) the
+              sharded ingest step on the north star's shard as two
+              60-point chunks (words and nbits per chunk bit-equal to
+              ingest_step's, the whole-window stats against a plain
+              reduction, every chunk decoded back); (b) a seal of 32,768
+              series x 256 points through Shard.tick (mesh_encode once,
+              words bit-equal to one device's with nothing attached,
+              the block read back); (c) quantile_rank_rows on phase 11 (b)'s timer tile;
+              (d) sum_rate and agg_rate's five ops on bench_promql's
+              10,000 counters against the host reference; (e) five mesh_ok
+              plans of the plan corpus, one CUDA graph over the four
+              slices, against the interpreter and one device; (f)
+              dryrun_multichip, query.sharded_agg firing over HTTP
 
 Every kernel's launches are counted per path (slice, query, storage,
 flush, graphite, plan, aggregator, durability, cluster, coordinator,
-pipeline, services, harness;
+pipeline, services, harness, mesh (its mesh calls alone);
 phase 14 (g) counts in cluster), each count set to 0 just before its
 path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
@@ -521,6 +537,9 @@ AGG_STEPS = {
                                                 "emit_batch"),
 }
 CARD_LINE = ""
+# Phase 11 (b)'s quantile tile (tile, counts, qs), ordered again over the
+# mesh in phase 18 (c).
+AGG_TILE = None
 
 
 class SmokeError(RuntimeError):
@@ -850,7 +869,6 @@ def main() -> int:
     # -- 11. the aggregator tier and the standing rules engine ---------------
     for name, n in _aggregator_phase(plan_corpus, t_q).items():
         by_path[name]["aggregator"] = n
-    del plan_corpus
 
     # -- 12. the storage node's durability ----------------------------------
     for name, n in _durability_phase().items():
@@ -875,6 +893,11 @@ def main() -> int:
     # -- 17. the harnesses: the drills and the witnesses --------------------
     for name, n in _harness_phase().items():
         by_path[name]["harness"] = n
+
+    # -- 18. the shard x time mesh on one card split four ways -------------
+    for name, n in _mesh_phase(corpus, plan_corpus, t_q).items():
+        by_path[name]["mesh"] = n
+    del plan_corpus
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -2974,6 +2997,8 @@ def _agg_rollup_10x() -> None:
           f"{_split_text(one)}")
     # The round's tile again, its parts timed alone.
     tile, counts = _timer_tile(elems, planes, shape)
+    global AGG_TILE
+    AGG_TILE = (tile, counts, qs)
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     tile_d = torch.from_numpy(tile).to("cuda")
@@ -3336,9 +3361,9 @@ BOOT_SERIES, BOOT_SHARDS, BOOT_WAVES, BOOT_SEED, BOOT_RUNS = (
 # a read at this size on the host of an H100 machine, so all 100,000
 # would take 27 s).
 BOOT_PREKILL_SAMPLE = 5_000
-# Phase 12 (b)'s series: config #8's 100,000 cut to 50,000 for the
-# script's time (PERF.md section 4); the grp tag puts 500 in each group.
-DUR_SERIES = 50_000
+# Phase 12 (b)'s series: config #8's 100,000 cut to 25,000 for the
+# script's time (PERF.md section 4); the grp tag puts 250 in each group.
+DUR_SERIES = 25_000
 DUR_GROUPS = 100
 DUR_QUERIES = ('rate(bench_hot{grp="g07"}[5m])',
                'sum_over_time(bench_hot{grp="g07"}[5m])',
@@ -3862,15 +3887,16 @@ def _scrub_fallthrough(state: dict) -> None:
 PEER_SERIES, PEER_POINTS, PEER_SHARDS, PEER_SEED, PEER_ITERS = (
     100_000, 4, 8, 61, 2)
 RF3_SERIES, RF3_POINTS, RF3_SHARDS, RF3_SEED = 10_000, 12, 16, 11
-CLUSTER_QUERIES = ("rate(bench_metric[5m])", "increase(bench_metric[5m])",
-                   "sum_over_time(bench_metric[5m])",
-                   "avg_over_time(bench_metric[5m])",
+# Three query shapes over the session, cut from six for the script's
+# time (six took 50.4 s on a slow host of the H100, PERF.md §4): a
+# rate, a `*_over_time` (K4) and an aggregation.
+CLUSTER_QUERIES = ("rate(bench_metric[5m])",
                    "max_over_time(bench_metric[5m])",
                    "sum(rate(bench_metric[5m]))")
-# Two of the queries run again from an empty plan cache (a capture each)
+# One of the queries runs again from an empty plan cache (a capture)
 # while a second thread writes through the session (four took 68 s of the
-# script's 1,200 on the H100's host, PERF.md §4).
-CONCURRENT_QUERIES = CLUSTER_QUERIES[3:5]
+# script's 1,200 on the H100's host, two 40.1 s, PERF.md §4).
+CONCURRENT_QUERIES = CLUSTER_QUERIES[1:2]
 # The peer-streaming steps that phase 13 (a) times (cProfile; on Python
 # 3.12 it records every thread, the donor's handler threads included, so
 # the split is indicative only).
@@ -4393,7 +4419,7 @@ def _repair_divergence(cluster: dict) -> None:
 # for sum(COORD_RULE_ROUNDS) steps.
 COORD_SERIES, COORD_HOSTS, COORD_SEED = 10_000, 200, 61
 COORD_REQUEST = (500, 24)
-SERVE_ROUNDS, SERVE_THREADS = 6, 4
+SERVE_ROUNDS, SERVE_THREADS = 3, 4   # rounds cut from 6 (PERF.md §4)
 SERVE_MIX = (
     ("rate_matrix", "rate(bench_requests[5m])", False),
     ("max_over_time_matrix", "max_over_time(bench_requests[10m])", False),
@@ -4405,7 +4431,8 @@ CARBON_TARGETS_14 = ("sumSeries(bench.*.metric*)",
                      "movingAverage(bench.host*.metric0, '5min')",
                      "groupByNode(bench.*.metric1, 1, 'sum')",
                      "highestCurrent(bench.host*.metric0, 5)")
-DS_METRICS, DS_MAPPING, DS_ROLLUP, DS_ORACLE = 100_000, 800, 200, 4_000
+# DS_METRICS cut from the bench's 100,000 for the script's time (PERF.md §4).
+DS_METRICS, DS_MAPPING, DS_ROLLUP, DS_ORACLE = 50_000, 800, 200, 4_000
 COORD_RULE_ROUNDS = (1, 4)   # steps a round (a first round evaluates one)
 # (e) runs after this many of (a)'s chunks of COORD_REQUEST[1] points (at
 # t[23]): standing rules evaluate as the data arrives, and every buffered
@@ -5129,16 +5156,59 @@ def _check_rendered(q, got, want) -> None:
               f"{q}: values differ")
 
 
+def _plain_stats(vv, mm) -> dict:
+    """The block moments of `vv` over its last axis where `mm`, by masked
+    reductions: the plain computation the ingest step's stats are held
+    to."""
+    import torch
+
+    cnt = mm.sum(-1)
+    idx = torch.arange(vv.shape[-1], device=vv.device)
+    last_i = torch.where(mm, idx, -1).amax(-1).clamp(min=0)
+    first_i = torch.where(mm, idx, vv.shape[-1]).amin(-1).clamp(
+        max=vv.shape[-1] - 1)
+    z = torch.where(mm, vv, 0.0)
+    mu = z.sum(-1) / cnt.clamp(min=1)
+    dev = torch.where(mm, vv - mu[..., None], 0.0)
+    return {
+        "count": cnt.float(),
+        "min": torch.where(mm, vv, float("inf")).amin(-1),
+        "max": torch.where(mm, vv, float("-inf")).amax(-1),
+        "last": torch.where(cnt > 0, vv.gather(-1, last_i[..., None])[..., 0], 0.0),
+        "first": torch.where(cnt > 0, vv.gather(-1, first_i[..., None])[..., 0], 0.0),
+        "sum": z.sum(-1), "sumsq": (z * z).sum(-1), "m2": (dev * dev).sum(-1),
+    }
+
+
+def _hold_stats(got: dict, want: dict, what: str) -> None:
+    """count/min/max/last/first identical; sum, sumsq and m2 within
+    bench.py's reduction-reorder bound |err| <= 2 n eps L1 (eps = 2^-23,
+    L1 per plane), m2's bound with the first- and second-order effect of
+    the mean's shift, as bench.py has it."""
+    import torch
+
+    for key in ("count", "min", "max", "last", "first"):
+        check(torch.equal(got[key], want[key]), f"{what} {key} differs")
+    cnt = want["count"].double()
+    depth = 2.0 * cnt.clamp(min=1) * EPS
+    sumsq = want["sumsq"].double()
+    m2 = want["m2"].double()
+    bound = {"sum": depth * torch.sqrt(cnt * sumsq), "sumsq": depth * sumsq}
+    mu_shift = (bound["sum"] + EPS * want["sum"].double().abs()) / cnt.clamp(min=1)
+    bound["m2"] = (depth * m2 + 2.0 * torch.sqrt(cnt * m2) * mu_shift
+                   + cnt * mu_shift * mu_shift)
+    for key, atol in bound.items():
+        err = (got[key].double() - want[key].double()).abs()
+        check(bool((err <= atol + 1e-12).all()),
+              f"{what} {key} beyond the reorder bound: {float(err.max())}")
+
+
 def _check_aggregates(block, roll, blk, qs) -> None:
     """The rollup (factor 6) and block planes against an independent plain
-    computation on the card: masked reductions over a reshaped window and
-    a sort for the quantiles. count/min/max/last/first and the quantiles
-    must be identical. sum, sumsq and m2 are float32 sums in another
-    order, held to bench.py's reduction-reorder bound |err| <= 2 n eps L1
-    (eps = 2^-23, L1 per plane). The plain m2 centres on the plain mean,
-    which may differ from the port's by the sum's reorder bound over n
-    plus one rounding of the divide; m2's bound adds the first- and
-    second-order effect of that shift, as bench.py does."""
+    computation on the card (_plain_stats: masked reductions over a
+    reshaped window) and a sort for the quantiles, under _hold_stats. The
+    plain m2 centres on the plain mean, which may differ from the port's
+    by the sum's reorder bound over n plus one rounding of the divide."""
     import torch
 
     from m3_tpu_torch.ops.bits64 import f64_bits_to_f32
@@ -5146,43 +5216,10 @@ def _check_aggregates(block, roll, blk, qs) -> None:
     v = f64_bits_to_f32(block.values.view(torch.int64))
     n, w = v.shape
     mask = torch.arange(w, device=v.device) < block.npoints[:, None]
-
-    def plain(vv, mm):
-        cnt = mm.sum(-1)
-        idx = torch.arange(vv.shape[-1], device=vv.device)
-        last_i = torch.where(mm, idx, -1).amax(-1).clamp(min=0)
-        first_i = torch.where(mm, idx, vv.shape[-1]).amin(-1).clamp(
-            max=vv.shape[-1] - 1)
-        z = torch.where(mm, vv, 0.0)
-        mu = z.sum(-1) / cnt.clamp(min=1)
-        dev = torch.where(mm, vv - mu[..., None], 0.0)
-        return {
-            "count": cnt.float(),
-            "min": torch.where(mm, vv, float("inf")).amin(-1),
-            "max": torch.where(mm, vv, float("-inf")).amax(-1),
-            "last": torch.where(cnt > 0, vv.gather(-1, last_i[..., None])[..., 0], 0.0),
-            "first": torch.where(cnt > 0, vv.gather(-1, first_i[..., None])[..., 0], 0.0),
-            "sum": z.sum(-1), "sumsq": (z * z).sum(-1), "m2": (dev * dev).sum(-1),
-        }
-
     rv = v.reshape(n, w // FACTOR, FACTOR)
     rm = mask.reshape(n, w // FACTOR, FACTOR)
     for got, vv, mm in ((roll, rv, rm), (blk, v, mask)):
-        want = plain(vv, mm)
-        for key in ("count", "min", "max", "last", "first"):
-            check(torch.equal(got[key], want[key]), f"aggregate {key} differs")
-        cnt = want["count"].double()
-        depth = 2.0 * cnt.clamp(min=1) * EPS
-        sumsq = want["sumsq"].double()
-        m2 = want["m2"].double()
-        bound = {"sum": depth * torch.sqrt(cnt * sumsq), "sumsq": depth * sumsq}
-        mu_shift = (bound["sum"] + EPS * want["sum"].double().abs()) / cnt.clamp(min=1)
-        bound["m2"] = (depth * m2 + 2.0 * torch.sqrt(cnt * m2) * mu_shift
-                       + cnt * mu_shift * mu_shift)
-        for key, atol in bound.items():
-            err = (got[key].double() - want[key].double()).abs()
-            check(bool((err <= atol + 1e-12).all()),
-                  f"aggregate {key} beyond the reorder bound: {float(err.max())}")
+        _hold_stats(got, _plain_stats(vv, mm), "aggregate")
     srt = torch.sort(torch.where(rm, rv, float("inf")), dim=-1).values
     nq = rm.sum(-1)
     for j, q in enumerate((0.5, 0.99)):
@@ -6838,6 +6875,278 @@ def _harness_phase() -> dict:
     return launches
 
 
+# Phase 18: the mesh. The north star's shard (100,000 series x 120 points,
+# seed 7) as a 2-chunk batch; PR 4's storage tile (32,768 series x 256
+# points) sealed through Shard.tick; phase 11 (b)'s timer tile;
+# bench_promql's 10,000 counters x 360; the plan corpus.
+MESH_SPLIT = 4
+MESH_SEAL_SERIES, MESH_SEAL_POINTS = 32_768, 256
+MESH_RATE_W = 30                      # [5m] at the corpus' 10 s
+MESH_PLAN_QUERIES = ("sum by (host) (rate(bench_requests[5m]))",
+                     "max by (host) (rate(bench_requests[5m]))",
+                     "avg_over_time(bench_requests[5m])",
+                     "sum by (host) (max_over_time(bench_requests[5m]))",
+                     "stddev(rate(bench_requests[5m]))")
+
+
+def _mesh_phase(corpus, plan_corpus, t) -> dict:
+    """Phase 18: every mesh route on the card split four ways
+    (`attach([cuda:0] * 4)`, a (2, 2) shard x time mesh), each held
+    against the single-device call on the same inputs. (a) the sharded
+    ingest step; (b) a seal through Shard.tick; (c) quantile_rank_rows;
+    (d) sum_rate and agg_rate's five ops; (e) compiled plans over the
+    query mesh; (f) dryrun_multichip. Returns the kernels' launches over
+    the mesh calls alone (each count set to 0 just before a mesh call and
+    read just after; the single-device calls they are held against are
+    not counted)."""
+    import torch
+
+    from m3_tpu_torch import ops
+    from m3_tpu_torch.device import attach
+    from m3_tpu_torch.utils.instrument import ROOT
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(REPLACES, 0)
+
+    def on_mesh(fn):
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in ops.kernel_launches().items():
+            launches[k] += n
+        return out
+
+    def dispatches():
+        snap = ROOT.snapshot()
+        return {k.split("kernel=")[1].rstrip("}"): v for k, v in snap.items()
+                if k.startswith("telemetry.mesh.dispatches{")}
+
+    devs = [torch.device("cuda", 0)] * MESH_SPLIT
+    with attach(devs):
+        _mesh_ingest(on_mesh)
+        _mesh_seal(on_mesh)
+        _mesh_rank_rows(on_mesh)
+        _mesh_rate(on_mesh, corpus)
+        _mesh_plans(on_mesh, plan_corpus, t)
+    _mesh_dryrun(on_mesh, devs)
+    secs = time.perf_counter() - t0
+    _card(f"mesh: phase 18 in {secs!r} s, launches {launches}, mesh "
+          f"dispatches {dispatches()}")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "window")),
+          f"phase 18 did not launch every kernel of its path: {launches}")
+    phase(f"mesh: every split equals one device, in {secs:.1f}s")
+    return launches
+
+
+def _mesh_ingest(on_mesh) -> None:
+    """(a) The sharded ingest step on the north star's shard as a 2-chunk
+    batch: each chunk's words and nbits bit-equal to the single-device
+    ingest_step of that chunk; the whole-window count/min/max/first/last
+    bit-equal, sum/sumsq/m2 within the reorder bound of a plain reduction
+    of the [N, T * W] values; every chunk decodes (K2) to its input."""
+    import torch
+
+    from m3_tpu_torch.ops import tsz
+    from m3_tpu_torch.parallel import ingest
+
+    s0 = time.perf_counter()
+    ts, vals, _ = ingest.make_example_raw(N, W, np.random.default_rng(SEED))
+    t_n, w = 2, W // 2
+    parts = [ingest.make_batch_from_raw(
+        ts[:, i * w:(i + 1) * w], vals[:, i * w:(i + 1) * w],
+        np.full(N, w, np.int32), device="cpu") for i in range(t_n)]
+    batch = ingest.IngestBatch(*(torch.stack(c) for c in zip(*parts)))
+    prep_s = time.perf_counter() - s0
+    mesh = ingest.make_mesh()
+    check(mesh.shape == {"shard": 2, "time": 2}, f"mesh {mesh.shape}")
+    mw = tsz.max_words_for(w)
+    step = ingest.make_sharded_ingest(mesh, rollup_factor=FACTOR,
+                                      max_words=mw)
+    s1 = time.perf_counter()
+    words, nbits, roll, qtl, whole, total_bits = on_mesh(
+        lambda: step(ingest.shard_batch(batch, mesh)))
+    step_s = time.perf_counter() - s1
+    dec = on_mesh(lambda: [tsz.decode_batch(words[i], batch.npoints[i],
+                                            window=w) for i in range(t_n)])
+    for i in range(t_n):
+        check(torch.equal(dec[i]["dt"].cpu(), batch.dt[i])
+              and torch.equal(dec[i]["v"].cpu(), batch.v[i]),
+              f"mesh (a): chunk {i} does not decode to its input")
+        one = ingest.ingest_step(ingest.IngestBatch(*(a[i] for a in batch)),
+                                 rollup_factor=FACTOR, max_words=mw)
+        check(torch.equal(one[0], words[i]) and torch.equal(one[1], nbits[i]),
+              f"mesh (a): chunk {i}'s words differ from one device's")
+    v = batch.values.cuda().permute(1, 0, 2).reshape(N, t_n * w)
+    _hold_stats(whole, _plain_stats(v, torch.ones_like(v, dtype=torch.bool)),
+                "mesh (a) whole-window")
+    check(int(total_bits) == int(nbits.to(torch.int64).sum()),
+          "mesh (a): total_bits differs from the nbits' sum")
+    torch.cuda.synchronize()
+    _card(f"mesh (a) sharded ingest {N} x {t_n} x {w} on {mesh.shape}: "
+          f"host prep {prep_s!r} s, the step {step_s!r} s (host clock); "
+          f"bytes_per_datapoint {int(total_bits) / 8 / (N * W)!r}")
+
+
+def _mesh_seal(on_mesh) -> None:
+    """(b) A seal through Shard.tick on the storage tile: mesh_encode
+    fires once, the words are bit-equal to the same encode on one device
+    (nothing attached and M3_TPU_MESH_FLUSH=0, so no mesh route can run),
+    and the block reads back (K2)."""
+    from m3_tpu_torch.device import attach
+    from m3_tpu_torch.parallel import ingest
+    from m3_tpu_torch.storage import block as storage_block
+    from m3_tpu_torch.storage.shard import Shard, ShardOptions
+    from m3_tpu_torch.utils import xtime
+    from m3_tpu_torch.utils.instrument import ROOT
+
+    s0 = time.perf_counter()
+    n, p = MESH_SEAL_SERIES, MESH_SEAL_POINTS
+    _, vals, _ = ingest.make_example_raw(n, p, np.random.default_rng(SEED + 4))
+    shard = Shard(0, ShardOptions())
+    block = shard.opts.block_size_ns
+    bs = (1_700_000_000 * 10**9 // block) * block
+    ids = [b"mesh-%06d" % i for i in range(n)]
+    for j in range(p):
+        tj = bs + xtime.MINUTE + j * 10 * xtime.SECOND
+        shard.write_batch(ids, np.full(n, tj, np.int64), vals[:, j], tj)
+    write_s = time.perf_counter() - s0
+    dense = shard.buffer.snapshot(bs)
+    counter = storage_block._FLUSH_METRICS.counter("mesh_encode")
+    before = counter.value()
+    s1 = time.perf_counter()
+    sealed = on_mesh(lambda: shard.tick(bs + block + 11 * xtime.MINUTE))
+    tick_s = time.perf_counter() - s1
+    check(sealed["sealed"] == 1 and counter.value() == before + 1,
+          f"mesh (b): the seal did not take the mesh once ({sealed})")
+    blk = shard.blocks[bs]
+    flushes = ROOT.snapshot().get(
+        "telemetry.mesh.dispatches{kernel=flush_encode}", 0)
+    os.environ["M3_TPU_MESH_FLUSH"] = "0"
+    try:
+        with attach([]):
+            one = storage_block.encode_block(bs, *dense)
+    finally:
+        del os.environ["M3_TPU_MESH_FLUSH"]
+    check(counter.value() == before + 1 and ROOT.snapshot().get(
+        "telemetry.mesh.dispatches{kernel=flush_encode}", 0) == flushes,
+        "mesh (b): the single-device twin took the mesh")
+    check(np.array_equal(blk.words, one.words)
+          and np.array_equal(blk.nbits, one.nbits)
+          and np.array_equal(blk.npoints, one.npoints),
+          "mesh (b): the mesh seal's words differ from one device's")
+    dt, dv, _ = on_mesh(blk.read_all)
+    check(np.array_equal(dt, dense[1]) and np.array_equal(
+        dv.view(np.int64), dense[2].view(np.int64)),
+        "mesh (b): the mesh-sealed block does not read back")
+    _card(f"mesh (b) seal of {n} x {p} through Shard.tick: writes "
+          f"{write_s!r} s, tick {tick_s!r} s (host clock), "
+          f"{int(blk.nbits.sum()) // 8} bytes")
+
+
+def _mesh_rank_rows(on_mesh) -> None:
+    """(c) quantile_rank_rows over the mesh on phase 11 (b)'s timer tile:
+    the indices bit-equal to one device's."""
+    from m3_tpu_torch.device import attach
+    from m3_tpu_torch.parallel import agg_flush
+
+    check(AGG_TILE is not None, "mesh (c): phase 11 left no timer tile")
+    tile, counts, qs = AGG_TILE
+    s0 = time.perf_counter()
+    got = on_mesh(lambda: agg_flush.quantile_rank_rows(tile, counts, qs))
+    mesh_s = time.perf_counter() - s0
+    with attach([]):
+        one = agg_flush.quantile_rank_rows(tile, counts, qs)
+    check(np.array_equal(got, one), "mesh (c): the rank indices differ from "
+          "one device's")
+    _card(f"mesh (c) rank rows of {tile.shape} over the mesh: {mesh_s!r} s "
+          f"(host clock, the H2D of the slices included)")
+
+
+def _mesh_rate(on_mesh, corpus) -> None:
+    """(d) sum_rate and agg_rate's five ops over the mesh on
+    bench_promql's counters (its rate window, the corpus' 10 s step),
+    each within rtol 1e-5 of the host reference (per-series rate on the
+    card, an f64 NaN-excluding host reduce); count, min and max equal."""
+    from m3_tpu_torch.ops import temporal
+    from m3_tpu_torch.parallel import query as pq
+    from m3_tpu_torch.query.executor import _default_query_mesh
+
+    grid = np.stack([e["v"] for e in corpus.values()]).astype(np.float64)
+    mesh = _default_query_mesh()
+    check(mesh.shape == {"shard": MESH_SPLIT}, f"query mesh {mesh.shape}")
+    kw = dict(W=MESH_RATE_W, step_ns=10 * 10**9,
+              range_ns=MESH_RATE_W * 10 * 10**9)
+    s0 = time.perf_counter()
+    got = on_mesh(lambda: pq.sum_rate(grid, mesh, **kw))
+    sum_s = time.perf_counter() - s0
+    want = pq.sum_rate_host_reference(grid, **kw)
+    check(np.allclose(got, want, rtol=1e-5, equal_nan=True),
+          "mesh (d): sum_rate differs from its host reference")
+    per = temporal.rate(grid, kw["W"], kw["step_ns"], kw["range_ns"])
+    fin = np.isfinite(per)
+    with np.errstate(all="ignore"):
+        host = {"sum": np.nansum(per, 0), "count": fin.sum(0).astype(float),
+                "avg": np.nansum(per, 0) / np.maximum(fin.sum(0), 1),
+                "min": np.nanmin(per, 0), "max": np.nanmax(per, 0)}
+    for op in pq.AGG_OPS:
+        out = on_mesh(lambda: pq.agg_rate(grid, mesh, op=op, func="rate",
+                                          **kw))
+        ref = np.where(fin.any(0), host[op], np.nan)
+        exact = op in ("count", "min", "max")
+        check(np.allclose(out, ref, rtol=0 if exact else 1e-5, atol=0,
+                          equal_nan=True),
+              f"mesh (d): {op}(rate) differs from the host reference")
+    _card(f"mesh (d) sum_rate over {grid.shape} on {mesh.shape}: {sum_s!r} s "
+          f"(host clock, the host prep included); five agg_rate ops equal "
+          f"the host reference")
+
+
+def _mesh_plans(on_mesh, plan_corpus, t) -> None:
+    """(e) The plan corpus' mesh_ok queries compiled over the query mesh
+    (one CUDA graph over the four slices of the card), a miss and a
+    replay each, held to the interpreter and to the single-device
+    compiled answer under "compiled query answers"."""
+    from m3_tpu_torch.query.executor import Engine
+    from m3_tpu_torch.testing import DictStorage
+
+    storage = DictStorage(plan_corpus)
+    eng = Engine(storage)
+    one = Engine(storage, mesh=None)
+    start, end = int(t[30]), int(t[-1])
+    for q in MESH_PLAN_QUERIES:
+        s0 = time.perf_counter()
+        on_mesh(lambda: eng.execute_range(q, start, end, STEP_NS).values)
+        miss_s = time.perf_counter() - s0
+        s1 = time.perf_counter()
+        blk = on_mesh(lambda: eng.execute_range(q, start, end, STEP_NS))
+        blk.values
+        hit_s = time.perf_counter() - s1
+        route = eng.last_route()
+        check(route["route"] == "compiled" and route.get("mesh") == {
+            "shards": MESH_SPLIT, "executable": "graph"},
+            f"mesh (e): {q} did not run as one graph over the mesh: {route}")
+        err_ref = _check_plan(q, blk, eng.execute_range_ref(
+            q, start, end, STEP_NS), "mesh vs interpreter")
+        err_one = _check_plan(q, blk, one.execute_range(
+            q, start, end, STEP_NS), "mesh vs one device")
+        _card(f"mesh (e) {q}: miss {miss_s!r} s, replay {hit_s!r} s (host "
+              f"clock); max rel diff {err_ref!r} vs the interpreter, "
+              f"{err_one!r} vs one device")
+
+
+def _mesh_dryrun(on_mesh, devs) -> None:
+    """(f) dryrun_multichip over the card split four ways: the sharded
+    ingest, the decode round trip, sum_rate and a coordinator whose
+    query.sharded_agg fires over HTTP."""
+    from m3_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    s0 = time.perf_counter()
+    out = on_mesh(lambda: dryrun_multichip(devs))
+    check(out["sharded_agg"] == 1, f"mesh (f): {out}")
+    _card(f"mesh (f) dryrun_multichip {out} in "
+          f"{time.perf_counter() - s0!r} s")
+
+
 if __name__ == "__main__":
     sys.exit(main())
-

@@ -36,6 +36,7 @@ from . import bits64 as b64
 from . import codec_kernels
 from ..device import resolve
 from ..parallel import guard
+from ..parallel import mesh as pmesh
 
 I32 = torch.int32
 I64 = torch.int64
@@ -471,11 +472,57 @@ def prepare_encode_inputs(timestamps, values, npoints) -> dict:
                 delta0=delta0.astype(np.int32))
 
 
-def encode_prepared(inp: dict, max_words: int, *, device=None):
-    """encode_batch from prepared inputs (the seal path)."""
+# The prepared inputs in encode_batch's argument order, with the dtype
+# each is staged at.
+_STAGE = {"dt": I32, "t0": I64, "v": I64, "int_mode": torch.bool, "k": I32,
+          "npoints": I32, "ts_regular": torch.bool, "delta0": I32}
+
+
+def prepared_tensors(inp: dict, device="cpu"):
+    """The prepared inputs as tensors on `device`, in encode_batch's
+    argument order (the mesh routes split them from the host)."""
+    return [_as(inp[key], dtype, torch.device(device))
+            for key, dtype in _STAGE.items()]
+
+
+@functools.lru_cache(maxsize=32)
+def encode_over(mesh: pmesh.Mesh, max_words: int):
+    """encode_batch as one program over `mesh`: the prepared rows split
+    over every mesh axis, each entry encoding its slice with the pack
+    kernel, words and nbits reassembled in row order on the mesh's first
+    device. The encode is row-independent, so the words are bit-identical
+    to one device's."""
+
+    def local(dt, t0, v, int_mode, k, npoints, ts_regular, delta0):
+        return encode_batch(dt, t0, v, int_mode, k, npoints, ts_regular,
+                            delta0, max_words=max_words, device=dt.device)
+
+    rows, rowc = (mesh.axis_names,), (mesh.axis_names, None)
+    return pmesh.shard_map(
+        local, mesh, in_specs=(rowc, rows, rowc, rows, rows, rows, rows, rows),
+        out_specs=[rowc, rows])
+
+
+def encode_single(inp: dict, max_words: int, *, device=None):
+    """encode_batch from prepared inputs on one device."""
     return encode_batch(inp["dt"], inp["t0"], inp["v"], inp["int_mode"],
                         inp["k"], inp["npoints"], inp["ts_regular"],
                         inp["delta0"], max_words=max_words, device=device)
+
+
+def encode_prepared(inp: dict, max_words: int, *, device=None):
+    """encode_batch from prepared inputs (the seal path). With several
+    devices attached, the rows take the seal's mesh route
+    (parallel/ingest.flush_encode_prepared, with its floor, its knob and
+    its guard route), else encode_single on `device`."""
+    from ..parallel import ingest
+
+    got = ingest.flush_encode_prepared(inp, max_words, device=device)
+    if got is None:
+        return encode_single(inp, max_words, device=device)
+    if device is None:
+        return got
+    return tuple(t.to(resolve(device)) for t in got)
 
 
 def encode(timestamps, values, npoints=None, max_words: int | None = None, *,

@@ -1,5 +1,5 @@
-"""The aggregator flush's quantile ordering on the device (port of
-m3_tpu/parallel/agg_flush.py, single device).
+"""The aggregator flush's quantile ordering on the device, on one device
+or split over the shard x time mesh (port of m3_tpu/parallel/agg_flush.py).
 
 One flush round pads the closed windows of every quantile-bearing elem
 (across resolutions, lists and aggregation shards) into one [rows, width]
@@ -12,16 +12,26 @@ reference's float64 accumulators cannot be met by f32 device sums.
 
 The ordering dispatches through the compute-fault guard under the route
 `agg_flush`: one H2D of the tile and counts, the selection, one D2H of
-the indices. On the card a fault raises a typed ComputeError; there is no
-fallback. The reference's mesh route (make_mesh_rank_selector and its
-M3_TPU_MESH_AGG_MIN_CELLS floor) is not ported: one device."""
+the indices. With several devices attached (parallel/ingest.flush_mesh)
+and a tile of at least M3_TPU_MESH_AGG_MIN_CELLS cells (default 2048),
+the rows, padded with count-0 windows to a multiple of the mesh, split
+over every entry (make_mesh_rank_selector): rows are independent, so the
+indices are bit-identical to one device's. A fault raises a typed
+ComputeError on either route; unlike the reference, nothing falls back
+to the single-device selection."""
 
 from __future__ import annotations
+
+import functools
+import os
 
 import numpy as np
 import torch
 
 from . import guard
+from . import mesh as pmesh
+from . import telemetry
+from .ingest import flush_mesh
 from ..device import resolve
 from ..ops import aggregation as agg
 from ..utils import numwatch
@@ -33,12 +43,48 @@ from ..utils import numwatch
 LANE = 128
 
 
+@functools.lru_cache(maxsize=64)
+def make_mesh_rank_selector(mesh: pmesh.Mesh, width: int, qs: tuple):
+    """Quantile rank selection over the shard x time mesh: the tile's
+    rows (one staged window each) split over BOTH axes, every entry
+    ordering its slice with the single-device selection
+    (ops/aggregation.quantile_rank_select), the indices reassembled in
+    row order."""
+
+    def local_select(values, counts):
+        return agg.quantile_rank_select(values, counts, qs)
+
+    rows, rowc = (mesh.axis_names,), (mesh.axis_names, None)
+    return pmesh.shard_map(local_select, mesh, in_specs=(rowc, rows),
+                           out_specs=rowc)
+
+
 def quantile_rank_rows(tile: np.ndarray, counts: np.ndarray, qs: tuple,
                        device=None) -> np.ndarray:
-    """The flush's quantile ordering on `device` (the card unless the
-    caller asks for the CPU): [B, width] f32 tile + [B] int32 counts ->
-    [B, len(qs)] int32 in-row indices, through the guard's `agg_flush`
-    route."""
+    """The flush's quantile ordering: [B, width] f32 tile + [B] int32
+    counts -> [B, len(qs)] int32 in-row indices, through the guard's
+    `agg_flush` route. Over the mesh when one is attached and the tile
+    reaches the dispatch floor (a tiny flush costs more in dispatch than
+    the split saves) and is of `device`'s type (mesh.for_device); else
+    on `device` (the card unless the caller asks for the CPU). The
+    indices are the same on both routes."""
+    n, width = tile.shape
+    mesh = pmesh.for_device(flush_mesh(), device)
+    min_cells = int(os.environ.get("M3_TPU_MESH_AGG_MIN_CELLS", "2048"))
+    if mesh is not None and n * width >= min_cells:
+        pad = (-n) % mesh.size
+        if pad:
+            tile = np.concatenate([tile, np.zeros((pad, width), tile.dtype)])
+            counts = np.concatenate([counts, np.zeros(pad, counts.dtype)])
+
+        def mesh_select():
+            telemetry.mesh_dispatch("agg_flush", cells=int(tile.size))
+            sel = make_mesh_rank_selector(mesh, width, qs)
+            idx = sel(torch.from_numpy(tile), torch.from_numpy(
+                np.ascontiguousarray(counts, np.int32)))
+            return idx.cpu().numpy()[:n]
+
+        return guard.dispatch("agg_flush", mesh_select)
     dev = resolve(device)
 
     def select():

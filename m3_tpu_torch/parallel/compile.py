@@ -1,5 +1,6 @@
 """Whole-plan compilation: one program per PromQL physical plan, on one
-device (port of m3_tpu/parallel/compile.py without its mesh branches).
+device or over the "shard" axis of a device mesh (port of
+m3_tpu/parallel/compile.py).
 
 The interpreter (query/executor.py, retained as the oracle
 `Engine.execute_range_ref`) dispatches each temporal op per block with
@@ -60,6 +61,22 @@ mask indexing, `torch.unique`, `.cpu()`, one-argument `torch.where`) —
 on the card the capture refuses it. The host preps (`center`,
 `rate_inputs`, the pads) stay in `_stage_fetch`, outside the program.
 
+Over a mesh (`execute(bound, device, mesh)` with a plan whose every node
+can shard, `plan.mesh_ok`): every selector's rows split over the mesh's
+"shard" axis (rows pad to shard count x a per-slice bucket), and the body
+runs each SHARDED edge once per slice — such an edge carries a list of
+per-slice tensors, each on its slice's device — while a REPLICATED edge
+carries one tensor on the mesh's first device. A fan-in node (an
+aggregate over a sharded child, absent_over_time) reduces its per-slice
+partials with the mesh's collectives (parallel/mesh: moved to the first
+device and combined in slice order, so a replay equals its eager body) —
+psum for sums and counts, the stddev/stdvar mean before its
+squared-deviation stage, pmin/pmax for the extremes — and replicates the
+result. A sharded series root's slices concatenate in row order. When
+every entry is one card (`attach([cuda:0] * k)`) the whole k-slice body
+is one CUDA graph, as on one device; over distinct cards the executable
+runs eagerly (`mesh_route()` names which).
+
 The whole program dispatches through `parallel/guard.dispatch` under the
 route `plan`, keyed by its shape bucket: a device fault raises a typed
 ComputeError and quarantines the bucket, which then raises at once until
@@ -81,6 +98,7 @@ import numpy as np
 import torch
 
 from . import guard
+from . import mesh as pmesh
 from . import telemetry
 from ..ops import series_agg, temporal, window_kernels
 from ..query import explain as qexplain
@@ -133,6 +151,7 @@ class Geometry:
     r_pads: Tuple[int, ...]          # per vv Binary node, preorder
     sub_pads: Tuple[int, ...]        # per SubqueryFunc node, preorder
     rank_pads: Tuple[Tuple[int, int], ...]  # per RankAgg: (g_pad, smax_pad)
+    n_shard: int = 1                 # 1 = single-device
 
 
 # The aux-array ordering contract between bind(), _aux_layout(),
@@ -140,6 +159,13 @@ class Geometry:
 def _is_vv(node: PlanNode) -> bool:
     return (isinstance(node, Binary) and node.lhs.edge.kind == SERIES
             and node.rhs.edge.kind == SERIES)
+
+
+def _row_bucket(s: int, n_shard: int) -> int:
+    """Rows padded to n_shard * bucket(rows per slice): the shard axis
+    divides evenly and one executable serves a bucket of sizes."""
+    per_dev = max(1, -(-s // n_shard))
+    return n_shard * qplan.next_bucket(per_dev)
 
 
 def _widths(root: PlanNode, t_pad: int,
@@ -194,11 +220,11 @@ def _fetch_exts(root: PlanNode, width_of: Dict[int, int],
     return tuple(need[f] for f in fetches)
 
 
-def geometry_for(bound: "qplan.Bound") -> Geometry:
+def geometry_for(bound: "qplan.Bound", n_shard: int = 1) -> Geometry:
     plan = bound.plan
     t_pad = qplan.next_bucket(plan.steps)
     # One executable serves a quarter-octave bucket of row counts.
-    s_pads = tuple(qplan.next_bucket(max(1, bound.fetches[f].grid.shape[0]))
+    s_pads = tuple(_row_bucket(bound.fetches[f].grid.shape[0], n_shard)
                    for f in plan.fetches)
     width_of, sub_pads = _widths(plan.root, t_pad)
     f_exts = _fetch_exts(plan.root, width_of, plan.fetches)
@@ -213,7 +239,7 @@ def geometry_for(bound: "qplan.Bound") -> Geometry:
          qplan.next_bucket(max(1, bound.aux[id(n)]["smax"])))
         for n in nodes if isinstance(n, RankAgg))
     return Geometry(t_pad, s_pads, f_exts, g_pads, r_pads, sub_pads,
-                    rank_pads)
+                    rank_pads, n_shard)
 
 
 # ---------------------------------------------------------- input staging
@@ -305,12 +331,17 @@ def stage_value_plane(grid: np.ndarray, s_pad: int, ext_pad: int
 
 
 def _stage_fetch(bf: "qplan.BoundFetch", kinds: Tuple[str, ...],
-                 s_pad: int, ext_pad: int, dev: torch.device):
+                 s_pad: int, ext_pad: int, dev: torch.device,
+                 mesh: Optional[pmesh.Mesh] = None):
     """Prepared, padded input tensors for one fetch on `dev`, behind
     ops/temporal's derived-input cache, so a repeat query (the grid cache
     returning the same consolidated grid object) reuses the staged device
-    tensors without a host prep or an upload."""
+    tensors without a host prep or an upload. Over a mesh every array's
+    rows split over the "shard" axis: the tuple then holds each array's
+    slices in slice order, each on its slice's device."""
     kind_tag = f"plan:{','.join(kinds)}:{s_pad}x{ext_pad}"
+    if mesh is not None:
+        kind_tag += f":{mesh.shape['shard']}@{hash(mesh)}"
 
     def build(g):
         # The padded f64 intermediate is only needed by the non-"value"
@@ -342,7 +373,14 @@ def _stage_fetch(bf: "qplan.BoundFetch", kinds: Tuple[str, ...],
                 arrs += [hi, lo]
             else:  # "value"
                 arrs.append(stage_value_plane(g, s_pad, ext_pad))
-        placed = tuple(temporal._put(a, dev) for a in arrs)
+        if mesh is not None:
+            # The derived cache charges the slices, as it does one
+            # device's tensors.
+            placed = tuple(part for a in arrs for part in pmesh.split_rows(
+                torch.from_numpy(np.ascontiguousarray(a)), mesh, "shard",
+                charge=False))
+        else:
+            placed = tuple(temporal._put(a, dev) for a in arrs)
         return placed, sum(tensor_nbytes(t) for t in placed)
 
     return temporal._derived(bf.grid, kind_tag, build, dev)
@@ -384,11 +422,14 @@ _BIN = {
 
 class _Ctx:
     """Emission context: staged inputs per fetch, bind-time index tensors
-    per node path, scalar slots, per-node time widths."""
+    per node path, scalar slots, per-node time widths. Over a mesh the
+    top context holds one context per slice (`slices`, each with its own
+    inputs on its device) and emits SHARDED edges through them."""
 
     def __init__(self, plan: Plan, geom: Geometry, fetch_ins, aux_ins,
-                 slots):
+                 slots, slices: Optional[List["_Ctx"]] = None):
         self.plan = plan
+        self.slices = slices
         self.geom = geom
         self.fetch_ins = fetch_ins          # {Fetch: {kind: (tensors...)}}
         self.aux_ins = aux_ins              # {path: (tensors...)}
@@ -464,16 +505,22 @@ def _lower_rangefunc(ctx: _Ctx, node: RangeFunc):
     W, stride = fetch.W, fetch.stride
     w_out = ctx.width_of[id(node)]
     ext = (w_out - 1) * stride + W
-    staged = ctx.fetch_ins[fetch]
-
     if f == "absent_over_time":
-        # Window presence counts, then ONE cross-row reduce: 1 where NO
-        # series has a sample in the window.
-        resid, _base32 = staged["resid"]
-        cnt = temporal._wsum(torch.isfinite(resid[:, :ext]), W, stride)
-        total = cnt.sum(0, keepdim=True)
+        # Window presence counts, then ONE cross-row (and cross-slice)
+        # reduce: 1 where NO series has a sample in the window.
+        def present(c):
+            resid, _base32 = c.fetch_ins[fetch]["resid"]
+            cnt = temporal._wsum(torch.isfinite(resid[:, :ext]), W, stride)
+            return cnt.sum(0, keepdim=True)
+
+        if ctx.slices is None:
+            total = present(ctx)
+        else:
+            total = pmesh.reduce_list([present(c) for c in ctx.slices],
+                                      "sum")
         return torch.where(total > 0, _NAN, 1.0)
 
+    staged = ctx.fetch_ins[fetch]
     ins: Dict[str, tuple] = {}
     if f in ("rate", "increase", "delta"):
         kind = "ratec" if f in _RATE_COUNTER else "rated"
@@ -636,36 +683,61 @@ def _segment_sum_sorted(z, layout, levels: int):
     return torch.where((starts >= 0)[:, None], x[starts.clamp(min=0)], 0.0)
 
 
+class _AggPart:
+    """One slice's (or, on one device, the whole) input of an aggregate:
+    its values, their presence mask, the group ids and the group-sorted
+    layout of the deterministic sum."""
+
+    def __init__(self, ctx: _Ctx, node: Aggregate, v):
+        self.gids, *self.layout = ctx.aux_ins[ctx.path_of[id(node)]]
+        self.v = v
+        self.mask = torch.isfinite(v)
+        self.levels = max(0, (v.shape[0] - 1).bit_length())
+
+    def ssum(self, x):
+        return _segment_sum_sorted(x, self.layout, self.levels)
+
+
 def _lower_aggregate(ctx: _Ctx, node: Aggregate):
-    """Cross-series reduce. Returns the collapsed f32 [G_pad, t_pad]
-    plane; a sum/avg ROOT additionally records its (residual-sum, count)
-    components so the host can finish in exact f64."""
-    gids, *layout = ctx.aux_ins[ctx.path_of[id(node)]]
+    """Cross-series reduce with collective fan-in: over a mesh with a
+    sharded child, every slice reduces its own rows and the partials
+    combine in slice order (psum / pmin / pmax). Returns the collapsed
+    f32 [G_pad, t_pad] plane; a sum/avg ROOT additionally records its
+    (residual-sum, count) components so the host can finish in exact
+    f64."""
     g_pad = ctx.g_pad_of[id(node)]
+    fan_in = ctx.slices is not None and node.arg.edge.sharding == qplan.SHARDED
+    cs = ctx.slices if fan_in else [ctx]
     if node.exact:
-        resid, _base32 = ctx.fetch_ins[node.arg]["resid"]
-        v = resid[:, :ctx.width_of[id(node)]]
+        vs = [c.fetch_ins[node.arg]["resid"][0][:, :ctx.width_of[id(node)]]
+              for c in cs]
     else:
-        v = _emit(ctx, node.arg)
-    mask = torch.isfinite(v)
-    cnt = series_agg._segment_sum(mask.to(F32), gids, g_pad)
-    levels = max(0, (v.shape[0] - 1).bit_length())
+        vs = _emit(ctx, node.arg)
+        vs = vs if fan_in else [vs]
+    parts = [_AggPart(c, node, v) for c, v in zip(cs, vs)]
 
-    def ssum(x):
-        return _segment_sum_sorted(x, layout, levels)
+    def fold(xs, how="sum"):
+        return xs[0] if len(xs) == 1 else pmesh.reduce_list(xs, how)
 
+    cnt = fold([series_agg._segment_sum(p.mask.to(F32), p.gids, g_pad)
+                for p in parts])
     op = node.op
     if op in ("stddev", "stdvar"):
         # Population moments (promql stddev/stdvar): mean first, then the
-        # squared-deviation reduce.
-        s = ssum(torch.where(mask, v, 0.0))
+        # squared-deviation reduce, each stage fanning in before the next
+        # reads it.
+        s = fold([p.ssum(torch.where(p.mask, p.v, 0.0)) for p in parts])
         mu = s / cnt.clamp(min=1)
-        dev = torch.where(mask, v - mu[gids], 0.0)
-        var = ssum(dev * dev) / cnt.clamp(min=1)
+
+        def sq_dev(p):
+            d = torch.where(p.mask, p.v - mu.to(p.v.device)[p.gids], 0.0)
+            return p.ssum(d * d)
+
+        var = fold([sq_dev(p) for p in parts]) / cnt.clamp(min=1)
         out = torch.sqrt(var) if op == "stddev" else var
         return torch.where(cnt > 0, out, _NAN)
     if op in ("sum", "avg"):
-        s = ssum(torch.where(mask, v, 0.0))
+        s = fold([p.ssum(torch.where(p.mask, p.v, 0.0)) for p in parts])
         if node is ctx.plan.root:
             ctx.root_agg = (s, cnt)
         out = s / cnt.clamp(min=1) if op == "avg" else s
@@ -676,8 +748,9 @@ def _lower_aggregate(ctx: _Ctx, node: Aggregate):
         return torch.where(cnt > 0, 1.0, _NAN)
     # min / max (lowering admits nothing else), XLA's signed-zero order.
     fill = float("inf") if op == "min" else float("-inf")
-    m = series_agg._segment_extreme(torch.where(mask, v, fill), gids, g_pad,
-                                    largest=op == "max")
+    m = fold([series_agg._segment_extreme(torch.where(p.mask, p.v, fill),
+                                          p.gids, g_pad, largest=op == "max")
+              for p in parts], op)
     return torch.where(cnt > 0, m, _NAN)
 
 
@@ -726,7 +799,11 @@ def _emit(ctx: _Ctx, node: PlanNode):
     # The memo is keyed on PLAN NODE identity (static DAG structure).
     if key in ctx.cache:
         return ctx.cache[key]
-    if isinstance(node, Fetch):
+    if ctx.slices is not None and node.edge.kind == SERIES and \
+            node.edge.sharding == qplan.SHARDED:
+        # A sharded edge: one value per slice, each emitted in its slice.
+        val = [_emit(c, node) for c in ctx.slices]
+    elif isinstance(node, Fetch):
         val = _lower_fetch(ctx, node)
     elif isinstance(node, RangeFunc):
         val = _lower_rangefunc(ctx, node)
@@ -751,61 +828,96 @@ def _emit(ctx: _Ctx, node: PlanNode):
 # -------------------------------------------------------------- compiler
 
 
-def _aux_layout(root: PlanNode) -> List[Tuple[int, int]]:
-    """(preorder path, arity) per aux-consuming node: aggregates take a
-    group-id array plus the group-sorted layout of the deterministic sum
-    (row order, rank in group, group size, group start); vector-vector
-    binaries two index arrays; rank aggregations a perm + inverse-perm
-    pair; packed subqueries one column map; timestamp() one step-time
-    vector. The stager and the body's unflattener both follow this
-    order."""
+def _split_agg(n: PlanNode, n_shard: int) -> bool:
+    """An aggregate whose aux arrays are per slice: over a mesh, with a
+    sharded child (its rows split over the slices)."""
+    return (n_shard > 1 and isinstance(n, Aggregate)
+            and n.arg.edge.sharding == qplan.SHARDED)
+
+
+def _aux_layout(root: PlanNode,
+                n_shard: int = 1) -> List[Tuple[int, int, bool]]:
+    """(preorder path, arity, per-slice) per aux-consuming node:
+    aggregates take a group-id array plus the group-sorted layout of the
+    deterministic sum (row order, rank in group, group size, group
+    start), one set per slice when their child is sharded over a mesh;
+    vector-vector binaries two index arrays; rank aggregations a perm +
+    inverse-perm pair; packed subqueries one column map; timestamp() one
+    step-time vector (replicated to every slice). The stager and the
+    body's unflattener both follow this order."""
     nodes: List[PlanNode] = []
     _preorder(root, nodes)
     out = []
     for i, n in enumerate(nodes):
         if isinstance(n, Aggregate):
-            out.append((i, 5))
+            out.append((i, 5, _split_agg(n, n_shard)))
         elif _is_vv(n):
-            out.append((i, 2))
+            out.append((i, 2, False))
         elif isinstance(n, RankAgg):
-            out.append((i, 2))
+            out.append((i, 2, False))
         elif isinstance(n, SubqueryFunc) and n.packed:
-            out.append((i, 1))
+            out.append((i, 1, False))
         elif isinstance(n, InstantFunc) and n.func == "timestamp":
-            out.append((i, 1))
+            out.append((i, 1, False))
     return out
 
 
-def _build_body(stripped: PlanNode, geom: Geometry, kinds_sig: tuple):
+def _build_body(stripped: PlanNode, geom: Geometry, kinds_sig: tuple,
+                devices: Optional[List[torch.device]] = None):
     """The torch-op function of ONE plan structure: keyed on the
     matcher-stripped plan and the geometry bucket, it serves every query
     (any metric, any threshold, any series count within the bucket) with
-    this plan shape."""
+    this plan shape. `devices`: the slices' devices over a mesh (each
+    staged array then comes as that many slices), None on one device."""
     fetches = tuple(f for f, _ in kinds_sig)
     kinds_by_fetch = dict(kinds_sig)
-    plan = Plan(stripped, 0, 0, fetches, False)
-    layout = _aux_layout(stripped)
+    plan = Plan(stripped, 0, 0, fetches, devices is not None)
+    k = 1 if devices is None else len(devices)
+    layout = _aux_layout(stripped, k)
     root_is_sum = (isinstance(stripped, Aggregate)
                    and stripped.op in ("sum", "avg"))
 
     def body(fetch_flat, aux_flat, slots):
-        fetch_ins = {}
+        # fetch_flat: per fetch, per kind, per array, its k slices.
+        fetch_ins = [{} for _ in range(k)]
         i = 0
         for f in fetches:
-            per = {}
+            per = [{} for _ in range(k)]
             for kind in kinds_by_fetch[f]:
                 n = _KIND_ARITY[kind]
-                per[kind] = tuple(fetch_flat[i:i + n])
-                i += n
-            fetch_ins[f] = per
-        aux_ins = {}
-        k = 0
-        for path, arity in layout:
-            aux_ins[path] = tuple(aux_flat[k:k + arity])
-            k += arity
-        ctx = _Ctx(plan, geom, fetch_ins, aux_ins, slots)
+                for s in range(k):
+                    per[s][kind] = tuple(fetch_flat[i + j * k + s]
+                                         for j in range(n))
+                i += n * k
+            for s in range(k):
+                fetch_ins[s][f] = per[s]
+        aux_ins = [{} for _ in range(k)]
+        top_aux = {}
+        pos = 0
+        for path, arity, split in layout:
+            if split:
+                for s in range(k):
+                    aux_ins[s][path] = tuple(aux_flat[pos:pos + arity])
+                    pos += arity
+                continue
+            top_aux[path] = tuple(aux_flat[pos:pos + arity])
+            pos += arity
+            for s in range(k):
+                aux_ins[s][path] = top_aux[path]
+        if devices is None:
+            ctx = _Ctx(plan, geom, fetch_ins[0], aux_ins[0], slots)
+        else:
+            slices = [_Ctx(plan, geom, fetch_ins[s],
+                           {p: tuple(a.to(d) for a in arrs)
+                            for p, arrs in aux_ins[s].items()},
+                           slots.to(d))
+                      for s, d in enumerate(devices)]
+            ctx = _Ctx(plan, geom, None, top_aux, slots, slices=slices)
         root_val = _emit(ctx, plan.root)
-        if isinstance(stripped, Fetch):
+        if isinstance(root_val, list):
+            # A sharded series root: the slices' rows in order.
+            root_val = pmesh.concat_rows(root_val)
+        elif isinstance(stripped, Fetch):
             # A bare selector's plane is a view of a (static) input.
             root_val = root_val.clone()
         extras = ctx.root_agg if root_is_sum else ()
@@ -848,9 +960,11 @@ class Executable:
     charged; charged: what the `plan` tenant counts; build_s: the wall of
     the first call."""
 
-    def __init__(self, body, device: torch.device):
+    def __init__(self, body, device: torch.device, graphed: bool = True):
         self.body = body
         self.device = device
+        # A CUDA graph only on one card; over distinct cards, eager.
+        self.graphed = graphed and device.type == "cuda"
         self.lock = threading.Lock()
         self.graph = None
         self._static = None
@@ -864,10 +978,11 @@ class Executable:
         self.build_s = 0.0
 
     def __call__(self, fetch_flat, aux_flat, slots):
-        if self.device.type != "cuda":
+        if not self.graphed:
+            dev = self.device
             return self.body(list(fetch_flat),
-                             [torch.from_numpy(a) for a in aux_flat],
-                             torch.from_numpy(slots))
+                             [torch.from_numpy(a).to(dev) for a in aux_flat],
+                             torch.from_numpy(slots).to(dev))
         with self.lock:
             if self.graph is None:
                 t0 = time.perf_counter()
@@ -985,16 +1100,19 @@ def _hbm_budget():
 
 
 def _plan_executable(stripped: PlanNode, geom: Geometry, kinds_sig: tuple,
-                     dev: torch.device) -> Tuple[Executable, bool]:
+                     dev: torch.device, mesh: Optional[pmesh.Mesh] = None
+                     ) -> Tuple[Executable, bool]:
     """(executable, missed): the cached executable of a plan structure,
-    geometry bucket and device, or a new one."""
-    key = (stripped, geom, kinds_sig, str(dev))
+    geometry bucket and device (or mesh), or a new one."""
+    key = (stripped, geom, kinds_sig, str(dev), mesh)
     with _EXEC_LOCK:
         exe = _EXECUTABLES.get(key)
         if exe is not None:
             _EXECUTABLES.move_to_end(key)
             return exe, False
-    exe = Executable(_build_body(stripped, geom, kinds_sig), dev)
+    devices = None if mesh is None else _slice_devices(mesh)
+    exe = Executable(_build_body(stripped, geom, kinds_sig, devices), dev,
+                     graphed=mesh is None or mesh.one_device())
     evicted = []
     with _EXEC_LOCK:
         other = _EXECUTABLES.get(key)
@@ -1038,10 +1156,11 @@ def clear() -> None:
 
 def _bucket_sig(geom: Geometry) -> str:
     """Compact shape-bucket label for ANALYZE device stages: padded rows
-    per fetch x padded steps — a closed set (quarter-octave buckets),
-    safe as a stage-name suffix."""
+    per fetch x padded steps (@ the shard count over a mesh) — a closed
+    set (quarter-octave buckets), safe as a stage-name suffix."""
     rows = "+".join(str(s) for s in geom.s_pads) or "0"
-    return f"s{rows}xt{geom.t_pad}"
+    shards = f"@{geom.n_shard}" if geom.n_shard > 1 else ""
+    return f"s{rows}xt{geom.t_pad}{shards}"
 
 
 @functools.lru_cache(maxsize=256)
@@ -1087,7 +1206,8 @@ def _segment_layout(gids: np.ndarray, n_groups: int, s_pad: int,
 def _aux_arrays(bound: "qplan.Bound", geom: Geometry,
                 nodes: List[PlanNode]) -> List[np.ndarray]:
     """Bind-time host label algebra -> the padded index arrays, in
-    _aux_layout's order."""
+    _aux_layout's order (an aggregate over a sharded child: one set per
+    slice, over the slice's rows)."""
     plan = bound.plan
     pad_rows = _padded_rows_map(bound, geom, nodes)
     width_of, _ = _widths(plan.root, geom.t_pad, geom.sub_pads)
@@ -1096,9 +1216,17 @@ def _aux_arrays(bound: "qplan.Bound", geom: Geometry,
     for n in nodes:
         if isinstance(n, Aggregate):
             a = bound.aux[id(n)]
-            out += _segment_layout(a["group_ids"], int(a["n_groups"]),
-                                   pad_rows[id(n.arg)], geom.g_pads[agg_i])
+            gids, n_groups = a["group_ids"], int(a["n_groups"])
+            g_pad = geom.g_pads[agg_i]
             agg_i += 1
+            if not _split_agg(n, geom.n_shard):
+                out += _segment_layout(gids, n_groups, pad_rows[id(n.arg)],
+                                       g_pad)
+                continue
+            rows = pad_rows[id(n.arg)] // geom.n_shard
+            for sl in range(geom.n_shard):
+                out += _segment_layout(gids[sl * rows:(sl + 1) * rows],
+                                       n_groups, rows, g_pad)
         elif _is_vv(n):
             a = bound.aux[id(n)]
             r_pad = geom.r_pads[vv_i]
@@ -1160,16 +1288,45 @@ def _to_host_async(*tensors: torch.Tensor):
     return wait
 
 
-def execute(bound: "qplan.Bound", device: torch.device):
-    """Run one bound plan compiled on `device`: stage inputs, fetch (or
+def _slice_devices(mesh: pmesh.Mesh) -> List[torch.device]:
+    """The devices of the mesh's "shard" axis (0 along any other)."""
+    axis = mesh.axis_names.index("shard")
+    coords = [0] * len(mesh.axis_names)
+    out = []
+    for i in range(mesh.shape["shard"]):
+        coords[axis] = i
+        out.append(mesh.device_at(coords))
+    return out
+
+
+def mesh_route(plan: "qplan.Plan", mesh: Optional[pmesh.Mesh]
+               ) -> Optional[dict]:
+    """How `execute` runs `plan` over `mesh`: None on one device (no
+    mesh, a plan that is not mesh_ok, or a shard axis of 1), else the
+    slice count and the executable's kind — "graph" (one CUDA graph over
+    every slice of one card), "eager" (distinct cards) or "cpu"."""
+    if mesh is None or not plan.mesh_ok or mesh.shape.get("shard", 1) <= 1:
+        return None
+    first = mesh.first
+    kind = ("cpu" if first.type != "cuda"
+            else "graph" if mesh.one_device() else "eager")
+    return {"shards": mesh.shape["shard"], "executable": kind}
+
+
+def execute(bound: "qplan.Bound", device: torch.device,
+            mesh: Optional[pmesh.Mesh] = None):
+    """Run one bound plan compiled on `device`, or over `mesh`'s "shard"
+    axis when the plan is mesh_ok (mesh_route): stage inputs, fetch (or
     build) the plan executable, dispatch ONE program through the guard,
     host-finish. Returns (values, tags, fetch_fn): scalar roots
     materialize `values` [steps] f64 directly; series roots return
     fetch_fn, a closure materializing the [rows, steps] plane (LazyBlock)
     from a device->host copy started here."""
     plan = bound.plan
-    dev = torch.device(device)
-    geom = geometry_for(bound)
+    route = mesh_route(plan, mesh)
+    use_mesh = mesh if route is not None else None
+    dev = torch.device(device) if use_mesh is None else use_mesh.first
+    geom = geometry_for(bound, 1 if route is None else route["shards"])
     stripped, kinds_sig, kinds = _compile_sig(plan.root, plan.fetches)
 
     # --- staged fetch inputs (device-resident via the derived cache)
@@ -1177,7 +1334,7 @@ def execute(bound: "qplan.Bound", device: torch.device):
     for fi, f in enumerate(plan.fetches):
         fetch_flat.extend(_stage_fetch(bound.fetches[f], kinds[f],
                                        geom.s_pads[fi], geom.f_exts[fi],
-                                       dev))
+                                       dev, use_mesh))
     nodes: List[PlanNode] = []
     _preorder(plan.root, nodes)
     aux_flat = _aux_arrays(bound, geom, nodes)
@@ -1189,12 +1346,13 @@ def execute(bound: "qplan.Bound", device: torch.device):
     # bucket raises at once (before its executable is rebuilt) until the
     # guard's TTL, and its cache entry is dropped.
     bucket = (_bucket_sig(geom), hash((stripped, kinds_sig)))
-    key = (stripped, geom, kinds_sig, str(dev))
+    key = (stripped, geom, kinds_sig, str(dev), use_mesh)
     actx = qexplain.current()
     state = {"missed": False, "dt": 0.0}
 
     def primary():
-        exe, missed = _plan_executable(stripped, geom, kinds_sig, dev)
+        exe, missed = _plan_executable(stripped, geom, kinds_sig, dev,
+                                       use_mesh)
         state["missed"] = missed
         if missed:
             telemetry.plan_cache_miss()
@@ -1202,6 +1360,8 @@ def execute(bound: "qplan.Bound", device: torch.device):
         else:
             telemetry.plan_cache_hit()
             fn = exe
+        if use_mesh is not None:
+            telemetry.mesh_dispatch("plan", cells=int(bound.total_cells))
         # ANALYZE (or a miss): synchronize, so the stage records the true
         # program wall; off, the cost is one thread-local read and the
         # launches stay asynchronous.

@@ -34,14 +34,19 @@ scope and tags the active span via `utils.tracing.count_cost`.
                       (codec.encode, codec.decode, codec.hash,
                       block.decode, temporal.*, plan), `kind` a ComputeError
                       kind (compile, oom, kernel, timeout), `state` a
-                      breaker state."""
+                      breaker state.
+
+  mesh_dispatch       one dispatch of a program over the device mesh
+                      (parallel/mesh), per kernel tag (flush_encode,
+                      agg_flush, agg_rate, plan), with the cells it
+                      covered."""
 
 from __future__ import annotations
 
 import functools
 import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 from ..utils import tracing
 from ..utils.instrument import ROOT
@@ -50,6 +55,7 @@ _SCOPE = ROOT.sub_scope("telemetry")
 _XFER = _SCOPE.sub_scope("transfer")
 _BUCKETS = _SCOPE.sub_scope("shape_bucket")
 _BUILD = _SCOPE.sub_scope("build")
+_MESH = _SCOPE.sub_scope("mesh")
 
 # Build wall time in seconds; boundaries skewed high — a warm-up plus a
 # graph capture is milliseconds to seconds, not a sub-ms request.
@@ -237,3 +243,24 @@ def compute_oom_reclaim(route: str, freed: int):
     if freed > 0:
         _COMPUTE.counter("oom_reclaimed_bytes").inc(int(freed))
     tracing.count_cost("compute_oom_reclaim")
+
+
+# ------------------------------------------------------------- dispatches
+
+
+def mesh_dispatch(kernel: str, cells: Optional[int] = None):
+    """Count one mesh-program dispatch for `kernel` (flush_encode,
+    agg_flush, agg_rate, plan); `cells` accumulates the dispatched
+    volume."""
+    scope = _SCOPE.sub_scope("mesh", kernel=kernel)
+    scope.counter("dispatches").inc()
+    _MESH.counter("dispatches").inc()
+    if cells:
+        scope.counter("cells").inc(int(cells))
+    tracing.count_cost("mesh_dispatch")
+
+
+def snapshot() -> dict:
+    """The telemetry.* slice of the instrument registry."""
+    return {k: v for k, v in ROOT.snapshot().items()
+            if k.startswith("telemetry.")}

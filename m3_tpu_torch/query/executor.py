@@ -30,11 +30,17 @@ the host, where the same functions run with device="cpu". Without one,
 the default, everything runs on the engine's device. The compiled route
 ignores placement, as the reference's does.
 
-Not in this port yet: the mesh-sharded aggregation."""
+With several devices attached (device.attach, or more than one card), the
+default engine's `mesh` is a 1-D "shard" mesh over them: a dashboard
+aggregation op(rate|increase|delta(selector[R])) evaluates over the mesh
+(parallel/query.py, counted as `query.sharded_agg`), and a compiled plan
+whose every node can shard (`plan.mesh_ok`) runs its selectors' rows
+split over the mesh with collective fan-in (parallel/compile.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 import time
@@ -42,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from ..device import resolve
+from ..device import attached, on_attach, resolve
 from ..ops import series_agg, temporal
 from . import corpus as qcorpus
 from . import explain as qexplain
@@ -76,6 +82,22 @@ Value = Union[Block, np.ndarray, float]
 
 class QueryError(ValueError):
     pass
+
+
+@functools.lru_cache(maxsize=1)
+def _default_query_mesh():
+    """One 1-D "shard" mesh over every attached device, or None with one
+    device. Cached after first use (serving processes build engines per
+    coordinator but share the device list) until an attach()."""
+    from ..parallel import mesh as pmesh
+
+    devs = attached()
+    if len(devs) <= 1:
+        return None
+    return pmesh.make(devs, (len(devs),), ("shard",))
+
+
+on_attach(_default_query_mesh.cache_clear)
 
 
 @dataclasses.dataclass
@@ -187,13 +209,25 @@ class Engine:
     placement: None (the default) runs every evaluation on `device`; a
     QueryPlacement for the same device opts in to its measured
     card-or-host cost model (query/placement.py). An engine on the CPU
-    has nothing to place."""
+    has nothing to place.
+
+    mesh: "auto" (the default) shards dashboard-shaped aggregations and
+    mesh_ok plans over every attached device (the in-mesh expression of
+    the reference's coordinator fanout,
+    src/query/storage/fanout/storage.go); None keeps every evaluation on
+    `device`; or an explicit parallel.mesh.Mesh with a "shard" axis. With
+    one device, or attached devices of another type than `device`'s,
+    "auto" resolves to None."""
 
     def __init__(self, storage, lookback_ns: int = DEFAULT_LOOKBACK_NS,
                  cost_enforcer=None, per_query_cost_limit=None,
-                 query_limits=None, device=None, placement=None):
+                 query_limits=None, device=None, placement=None,
+                 mesh="auto"):
         self.storage = storage
         self.device = resolve(device)
+        # "auto" resolves on the first query that can shard, so an attach()
+        # around the engine's first use decides it.
+        self._mesh = mesh
         if placement is not None and placement.device != self.device:
             raise ValueError(f"placement is for {placement.device}, the "
                              f"engine runs on {self.device}")
@@ -216,6 +250,18 @@ class Engine:
         # query's datapoints to another.
         self._local = threading.local()
         self._grid_cache = _GridCache()
+
+    @property
+    def mesh(self):
+        if isinstance(self._mesh, str):  # "auto"
+            from ..parallel import mesh as pmesh
+
+            return pmesh.for_device(_default_query_mesh(), self.device)
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, value):
+        self._mesh = value
 
     def placement_snapshot(self) -> Optional[dict]:
         """The live card-or-host cost model: measured link bandwidth and
@@ -428,8 +474,9 @@ class Engine:
                             f"{bound.total_cells} cells < "
                             f"{qplan.PLAN_MIN_CELLS} floor")
             return None
+        mesh = self.mesh
         try:
-            values, tags, fetch = pcompile.execute(bound, self.device)
+            values, tags, fetch = pcompile.execute(bound, self.device, mesh)
         except pcompile.PlanFallback as e:
             ROOT.counter("query.plan.fallback").inc()
             telemetry.plan_fallback(e.reason.value,
@@ -438,6 +485,10 @@ class Engine:
             return None
         ROOT.counter("query.plan.executed").inc()
         self._set_route("compiled", "", "")
+        sharded = pcompile.mesh_route(bound.plan, mesh)
+        if sharded is not None:
+            # What the executable really ran: its slices and its kind.
+            self._local.route_info["mesh"] = sharded
         if fetch is None:
             return values          # [steps] scalar; _to_block wraps it
         return LazyBlock(params.meta(), tags, fetch)
@@ -462,8 +513,10 @@ class Engine:
     def last_route(self) -> Optional[dict]:
         """The route record of this THREAD's most recent query: route
         ("compiled"/"interpreter"), typed fallback_reason (a
-        `plan.FallbackReason` value) and a human detail — None when no
-        query ran on this thread yet."""
+        `plan.FallbackReason` value) and a human detail, plus `mesh`
+        (pcompile.mesh_route: slices and executable kind) when a compiled
+        plan ran over the mesh — None when no query ran on this thread
+        yet."""
         return getattr(self._local, "route_info", None)
 
     def _eval(self, node: Node, params: QueryParams) -> Value:
@@ -910,7 +963,47 @@ class Engine:
 
     # -- aggregation -------------------------------------------------------
 
+    def _eval_sharded_agg(self, node: Aggregation,
+                          params: QueryParams) -> Optional[Block]:
+        """The mesh route for dashboard-shaped aggregations: a GLOBAL
+        op(rate|increase|delta(selector[R])) evaluates over the mesh, each
+        entry running the rate math on its series and one collective over
+        the "shard" axis giving the [steps] answer (parallel/query.py; the
+        reference fans the same shape out across dbnodes and merges at the
+        coordinator, src/query/storage/fanout/storage.go). None when the
+        shape does not match or no mesh is attached: the host reduce
+        below runs. Device sums are f32."""
+        mesh = self.mesh
+        if mesh is None or node.grouping or node.without:
+            return None
+        from ..parallel import query as pq
+
+        if node.op not in pq.AGG_OPS or not isinstance(node.expr, Call):
+            return None
+        func = node.expr.func
+        if func not in pq.RANGE_FUNCS:
+            return None
+        sel_args = [a for a in node.expr.args
+                    if isinstance(a, VectorSelector)]
+        if (not sel_args or not sel_args[-1].range_ns
+                or sel_args[-1].at_ns is not None):
+            return None
+        sel = sel_args[-1]
+        ext, W, stride = self._eval_range_selector(sel, params)
+        if ext.n_series == 0:
+            return Block(params.meta(), [], np.zeros((0, params.steps)))
+        out = pq.agg_rate(ext.values, mesh, op=node.op, func=func, W=W,
+                          step_ns=ext.meta.step_ns, range_ns=sel.range_ns,
+                          stride=stride)
+        from ..utils.instrument import ROOT
+
+        ROOT.counter("query.sharded_agg").inc()
+        return Block(params.meta(), [Tags.of({})], out[None, :])
+
     def _eval_aggregation(self, node: Aggregation, params: QueryParams) -> Block:
+        sharded = self._eval_sharded_agg(node, params)
+        if sharded is not None:
+            return sharded
         block = self._eval(node.expr, params)
         if not isinstance(block, Block):
             raise QueryError(f"{node.op} expects an instant vector")

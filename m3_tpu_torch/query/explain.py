@@ -19,7 +19,8 @@ structured tree without touching storage:
 Because EXPLAIN never fetches, the data-dependent below-floor decision
 (`PLAN_MIN_CELLS`) can't be resolved statically; the payload carries the
 floor so the caller can compare, and `Engine.last_route()` reports the
-route the execution ACTUALLY took.
+route the execution ACTUALLY took (with `mesh`, the slice count and the
+executable's kind, when a mesh_ok plan ran over the mesh).
 
 ANALYZE is an instrumented execution mode: `with analyzing() as a:`
 installs a thread-local context the query path feeds stage wall times

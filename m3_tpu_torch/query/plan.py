@@ -10,11 +10,10 @@ SubqueryFunc / RankAgg / InstantFunc / Aggregate / Binary / ScalarConst),
 each edge annotated with its value kind ("series" = a [S, T] block,
 "scalar" = a 0-d value broadcast over steps) and its sharding ("shard" =
 rows partitioned over a mesh's shard axis, "replicated" = identical on
-every device). The annotations are the reference's: its compiler runs a
-plan whose every series edge stays row-partitioned as one sharded
-program with collective fan-in; this port runs every plan on one device
-and keeps them (EXPLAIN shows them, `mesh_ok` is still computed) for the
-mesh slice. A plan containing any non-lowerable node doesn't compile at
+every device). The annotations are the reference's: a plan whose every
+series edge stays row-partitioned (`mesh_ok`) runs over the mesh's shard
+axis as one program with collective fan-in (parallel/compile.py), the
+others on one device; EXPLAIN shows them. A plan containing any non-lowerable node doesn't compile at
 all and the executor falls back to the retained interpreter
 (`Engine.execute_range_ref`, the oracle).
 

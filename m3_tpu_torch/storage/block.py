@@ -14,8 +14,10 @@ where its reads decode: the pack kernel at seal time, the decode kernel
 at read time. A decode fault on the card raises (typed, through the
 compute-fault guard's block.decode route); nothing falls back to a host
 decoder. `merge_sealed_blocks` compacts two time-adjacent blocks through
-the scan-free concat (ops/tsz_concat). Not ported yet: the shard x time
-mesh seal."""
+the scan-free concat (ops/tsz_concat). With several devices attached,
+the seal's encode splits the block's rows over the shard x time mesh
+(parallel/ingest.flush_encode_prepared); its words are bit-identical to
+one device's."""
 
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from ..device import resolve
 from ..ops import tsz
+from ..parallel import ingest as par_ingest
 from ..utils import xtime
 from ..utils.checksum import adler32_rows
 from ..utils.instrument import ROOT
@@ -43,6 +46,7 @@ _GEN = itertools.count(1)
 
 # Serve-time integrity counters.
 _CORRUPTION = ROOT.sub_scope("storage.corruption")
+_FLUSH_METRICS = ROOT.sub_scope("storage.flush")
 
 
 def choose_time_unit(ts: np.ndarray) -> xtime.Unit:
@@ -244,7 +248,7 @@ def _next_pow2(n: int, floor: int = 8) -> int:
 def encode_block(block_start: int, series_indices, tdense, vdense, npoints,
                  max_words: Optional[int] = None, *,
                  device=None) -> SealedBlock:
-    """Batch-encode dense tiles (from ShardBuffer.drain) into a SealedBlock
+    """Batch-encode dense tiles (from ShardBuffer.snapshot) into a SealedBlock
     on `device` (None: the CUDA card).
 
     Tiles are padded to power-of-two (series, window) geometry, exactly
@@ -253,7 +257,15 @@ def encode_block(block_start: int, series_indices, tdense, vdense, npoints,
     window and max_words follow from the padded geometry, so the words,
     nbits and boundary are bit-identical to the reference's. The host
     prep (prepare_encode_inputs) is numpy; the chunk build and the pack
-    kernel run on the device."""
+    kernel run on the device.
+
+    With several devices of `device`'s type attached the encode routes
+    through the shard x time mesh (parallel/ingest.flush_encode_prepared,
+    counted as `storage.flush.mesh_encode`): rows split over every entry, the
+    output bit-identical to the single-device encode. A fault there
+    raises a typed ComputeError before anything is returned, so the
+    caller's buffer still holds the points (Shard._tick_locked drops a
+    bucket only after its encode returned)."""
     dev = resolve(device)
     s, w = tdense.shape
     wp = _next_pow2(w)
@@ -272,7 +284,13 @@ def encode_block(block_start: int, series_indices, tdense, vdense, npoints,
     unit = choose_time_unit(tdense)
     mw = max_words if max_words is not None else tsz.max_words_for(window)
     inp = tsz.prepare_encode_inputs(tdense // unit.nanos, vdense, npoints)
-    words_dev, nbits_dev = tsz.encode_prepared(inp, max_words=mw, device=dev)
+    got = par_ingest.flush_encode_prepared(inp, max_words=mw, device=dev)
+    if got is not None:
+        words_dev, nbits_dev = (t.to(dev) for t in got)
+        _FLUSH_METRICS.counter("mesh_encode").inc()
+    else:
+        words_dev, nbits_dev = tsz.encode_single(inp, max_words=mw,
+                                                 device=dev)
     boundary = tsz.boundary_metadata(inp)
     # Keep the just-encoded DEVICE tensors (padded [sp, mw] words + padded
     # npoints — exactly what a later whole-block decode consumes) for the

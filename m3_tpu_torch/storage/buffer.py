@@ -174,12 +174,9 @@ class ShardBuffer:
             if bs + self.block_size_ns + self.buffer_past_ns <= now_ns
         )
 
-    def drain(self, block_start: int):
-        """Remove and return the bucket's deduped dense tiles for encoding."""
-        b = self.buckets.pop(block_start, None)
-        if b is None or b.cols.n == 0:
-            return None
-        return to_dense(*dedup_sorted(*b.cols.view()))
+    def discard(self, block_start: int) -> None:
+        """Drop the bucket (after its snapshot sealed)."""
+        self.buckets.pop(block_start, None)
 
     def snapshot(self, block_start: int):
         """Dense tiles of the bucket's current contents, leaving it mutable

@@ -273,11 +273,17 @@ class Shard:
         sealed, expired = 0, 0
         cache = block_cache.get_cache()
         for bs in self.buffer.sealable(now_ns):
-            dense = self.buffer.drain(bs)
-            if dense is not None:
+            # The bucket is dropped only after its encode returned: a
+            # typed fault in the encode leaves every point in the buffer,
+            # and the next tick seals it (the seal is all-or-nothing).
+            dense = self.buffer.snapshot(bs)
+            if dense is None:
+                self.buffer.discard(bs)
+            else:
                 series, tdense, vdense, npoints = dense
                 blk = encode_block(bs, series, tdense, vdense, npoints,
                                    device=self.device)
+                self.buffer.discard(bs)
                 prev = self.blocks.get(bs)
                 if prev is not None:
                     # A drain can land writes for a block start that was

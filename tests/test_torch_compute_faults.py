@@ -19,8 +19,9 @@ or do not apply, and why:
     surface): its campaigns are in tests/test_torch_plan_compile.py;
   * the aggregator flush (`agg_flush`): its campaign is in
     tests/test_torch_agg_flush.py;
-  * the mesh flush encode (all-or-nothing `flush_encode`): the mesh seal
-    is not ported yet (multi-device, the last slice);
+  * the mesh flush encode (all-or-nothing `flush_encode`) and the
+    agg_flush mesh campaign: in tests/test_torch_mesh_routes.py, under
+    `attach([cpu] * 8)`;
   * the churn composition drill (TestComputeFaultChurn): in
     tests/test_torch_scenario.py, over the port's ComputeFaultChurnScenario."""
 

@@ -25,7 +25,12 @@ a hash fault on the bloom route raises typed. A 3-node cluster on the
 card (node servers, a Session decoding its tiles on the card) gives the
 same fetch_tagged answers, peers bootstrap words and repaired rows as the
 same cluster with device="cpu", while handler threads launch the kernels
-concurrently."""
+concurrently. The upload cache's thread races (the port of
+tests/test_concurrent_round4.py::TestUploadCacheRaces) run here, the
+cache being the card's only; and the mesh split four ways on one card
+(`attach([cuda:0] * 4)`) gives the sharded ingest's words and a compiled
+plan's answers of one device, its plan a CUDA graph over the four slices
+whose replay equals its body run eagerly."""
 
 import numpy as np
 import pytest
@@ -1057,3 +1062,105 @@ def test_run_dbnode_defaults_to_the_card(cuda, fresh_cache, tmp_path):
         assert ck.launch_counts()["decode"] > before
     finally:
         h.close()
+
+
+class TestUploadCacheRaces:
+    """The port of tests/test_concurrent_round4.py::TestUploadCacheRaces:
+    the upload cache (ops/temporal._cached_put) runs on the card only."""
+
+    def test_cached_put_concurrent_hammer(self, cuda):
+        """Many threads inserting and reading overlapping keys never raise
+        and keep the byte ledger consistent (the cache serves every query
+        thread of a coordinator)."""
+        import concurrent.futures as cf
+
+        from m3_tpu_torch.ops import temporal
+
+        with temporal._PUT_CACHE_LOCK:
+            temporal._PUT_CACHE.clear()
+            temporal._put_cache_bytes = 0
+        rng = np.random.default_rng(0)
+        # A small budget forces constant eviction while threads hold hits.
+        old = temporal._PUT_CACHE_MAX_BYTES
+        temporal._PUT_CACHE_MAX_BYTES = 64 * 1024
+        arrays = [np.ascontiguousarray(rng.random((64, 64), np.float32))
+                  for _ in range(12)]
+        errors = []
+
+        def worker(seed):
+            r = np.random.default_rng(seed)
+            try:
+                for _ in range(200):
+                    a = arrays[r.integers(len(arrays))]
+                    out = temporal._cached_put(a, cuda)
+                    assert out.shape == a.shape and out.device.type == "cuda"
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        try:
+            with cf.ThreadPoolExecutor(8) as ex:
+                list(ex.map(worker, range(8)))
+        finally:
+            temporal._PUT_CACHE_MAX_BYTES = old
+        assert not errors, errors
+        with temporal._PUT_CACHE_LOCK:
+            assert temporal._PUT_CACHE  # the cache actually ran
+            ledger = sum(nb for _, nb in temporal._PUT_CACHE.values())
+            assert ledger == temporal._put_cache_bytes
+
+    def test_concurrent_rate_queries_share_cache(self, cuda):
+        import concurrent.futures as cf
+
+        from m3_tpu_torch.ops import temporal
+
+        s = 1_000_000_000
+        rng = np.random.default_rng(1)
+        grid = np.cumsum(rng.poisson(3.0, (64, 48)), axis=1).astype(np.float64)
+        expected = temporal.rate(grid, 6, 10 * s, 60 * s)
+        results = []
+
+        def q(_):
+            results.append(temporal.rate(grid, 6, 10 * s, 60 * s))
+
+        with cf.ThreadPoolExecutor(6) as ex:
+            list(ex.map(q, range(12)))
+        for r in results:
+            np.testing.assert_array_equal(np.isnan(r), np.isnan(expected))
+            np.testing.assert_allclose(r[np.isfinite(r)],
+                                       expected[np.isfinite(expected)])
+
+
+def test_mesh_on_one_card_equals_one_device(cuda):
+    """attach([cuda:0] * 4): the sharded ingest's words, the seal's mesh
+    encode and a compiled plan over the query mesh equal one device's;
+    the plan's four-slice executable is one CUDA graph whose replay
+    equals its body run eagerly, bit for bit."""
+    from m3_tpu_torch.device import attach
+    from m3_tpu_torch.parallel import compile as pcompile
+
+    batch = ingest.make_example_batch(64, 24, np.random.default_rng(3),
+                                      chunks=2, device="cpu")
+    mw = tsz.max_words_for(24)
+    series, t = promql_corpus(300, 17, hosts=20, metric=b"bench_requests")
+    q = "sum by (host) (avg_over_time(bench_requests[5m]))"
+    one = Engine(DictStorage(series), mesh=None).execute_range(
+        q, int(t[30]), int(t[-1]), 30 * 10**9)
+    with attach([cuda] * 4):
+        mesh = ingest.make_mesh()
+        words, nbits, *_ = ingest.make_sharded_ingest(
+            mesh, rollup_factor=6, max_words=mw)(
+                ingest.shard_batch(batch, mesh))
+        for i in range(2):
+            w1, nb1, *_ = ingest.ingest_step(
+                ingest.IngestBatch(*(a[i] for a in batch)), rollup_factor=6,
+                max_words=mw)
+            assert torch.equal(w1, words[i]) and torch.equal(nb1, nbits[i])
+        eng = Engine(DictStorage(series))
+        got = eng.execute_range(q, int(t[30]), int(t[-1]), 30 * 10**9)
+        assert eng.last_route()["mesh"] == {"shards": 4,
+                                            "executable": "graph"}
+    np.testing.assert_allclose(got.values, one.values, rtol=2e-5, atol=1e-6,
+                               equal_nan=True)
+    sharded = [e for label, e in pcompile.executables() if "@4" in label]
+    assert sharded and all(e.graph is not None for e in sharded)
+    assert all(e.replay_matches_eager() for e in sharded)

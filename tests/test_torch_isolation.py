@@ -418,6 +418,22 @@ kd = scenario.KillRestartScenario(scenario.KillRestartOptions(device="cpu"))
 ok = ok and kd.argv()[1:3] == ["-m", "m3_tpu_torch.services"]
 kd.close()
 
+from m3_tpu_torch.device import attach
+from m3_tpu_torch.parallel import query as pquery
+from m3_tpu_torch.parallel.dryrun import dryrun_multichip
+from m3_tpu_torch.query import executor as qexec
+
+ok = ok and ingest.flush_mesh() is None
+ok = ok and qexec._default_query_mesh() is None
+dr = dryrun_multichip([torch.device("cpu")] * 4)
+ok = ok and dr["sharded_agg"] == 1 and dr["mesh"] == {"shard": 2, "time": 2}
+ok = ok and ingest.flush_mesh() is None and Engine(DictStorage(series),
+                                                   device="cpu").mesh is None
+with attach([torch.device("cpu")] * 2):
+    ok = ok and ingest.flush_mesh().shape == {"shard": 2, "time": 1}
+    ok = ok and pquery.sum_rate(np.cumsum(np.ones((3, 12)), 1), ingest.flush_mesh(),
+                                W=4, step_ns=10**10, range_ns=4 * 10**10)[-1] > 0
+
 torch.cuda.is_available = lambda: False
 ddb.device = torch.device("cuda")
 cagg = Aggregator(device="cpu")
@@ -448,7 +464,8 @@ for make in (lambda: Engine(DictStorage(series)),
              lambda: scenario.ComputeFaultChurnScenario(),
              lambda: scenario.DiskFaultScenario(),
              lambda: scenario.KillRestartScenario(scenario.KillRestartOptions(
-                 data_dir=os.path.join(sroot, "refused")))):
+                 data_dir=os.path.join(sroot, "refused"))),
+             lambda: dryrun_multichip([torch.device("cuda")] * 2)):
     try:
         make()
         ok = False
@@ -500,7 +517,11 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     the harnesses: an open-loop LoadGen run, a lockdep graph closing a
     cycle, a racy pair, a small churn drill held to its verify, and the
     kill drill's child command line; the four drills refuse to start
-    without a card."""
+    without a card. Then the multi-device layer: no mesh with nothing
+    attached, the dry run over four CPU entries (sharded ingest, decode
+    round trip, sum_rate, a coordinator's sharded aggregation over HTTP),
+    a mesh sum_rate under attach; the dry run over cards refuses without
+    one."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -555,6 +576,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from m3_tpu_torch.testing import scenario
     from m3_tpu_torch.rpc import node_server
     from m3_tpu_torch.testing import faultnet
+    from m3_tpu_torch.device import attach
+    from m3_tpu_torch.parallel import dryrun
 
     # The drills must refuse before they spawn a child or open a listener.
     started = []
@@ -634,6 +657,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: scenario.KillRestartScenario(),
         lambda: scenario.KillRestartScenario(scenario.KillRestartOptions(
             data_dir=str(tmp_path / "drill"))),
+        lambda: dryrun.dryrun_multichip([torch.device("cuda")] * 2),
+        lambda: attach(["cuda"] * 2).__enter__(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,7 @@
 """The port's whole-plan compiled route (m3_tpu_torch/query/plan.py ->
 m3_tpu_torch/parallel/compile.py) on the CPU, the port of
-tests/test_plan_compile.py without its mesh class: the same seeded
+tests/test_plan_compile.py (its mesh class is in
+tests/test_torch_mesh_routes.py): the same seeded
 `make_storage` corpus (86 compiled and 20 fallback queries) and the same
 `_tol` bounds (rtol 2e-5 with atol max(1e-8, 1e-6 max|ref|); deriv rtol
 1e-3, atol 1e-4; predict_linear and holt_winters rtol 2e-3, atol 1e-2;
@@ -249,7 +250,7 @@ class TestFallback:
         assert len(calls) == 1
 
     def test_backend_gap_takes_the_interpreter(self, monkeypatch, no_floor):
-        def gap(bound, device):
+        def gap(bound, device, mesh=None):
             raise pcompile.PlanFallback("no such shape")
 
         monkeypatch.setattr(pcompile, "execute", gap)
