@@ -5,6 +5,11 @@ service binaries as child processes, its drills and its multi-device
 layer, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
+                                  python3 chip_smoke.py --churn-witness N
+(the second form builds the kernels and runs only phase 17 (b)'s churn
+drill N times in one process under the lockdep witness, printing each
+run's p99s, its churn ops, the interpreter stalls and the locks that
+parked longest; it prints no kernels line)
 
 Phases (each synchronises the device and fails the run on any error):
   1. device   require CUDA; print the card's name and power limit
@@ -363,8 +368,12 @@ Phases (each synchronises the device and fails the run on any error):
               nothing fabricated, the restart within 30 s; the fresh
               child's first-write latency, the spawn walls and
               bootstrap_s printed; the restarted child stopped with
-              SIGTERM so that its witnesses dump: zero lockdep cycles,
-              the observed access profiles and racy pairs printed. (b)
+              SIGTERM so that its witnesses dump, both held to the static
+              model by m3_tpu_torch.analysis.witness: zero lockdep
+              cycles, every witnessed edge in the static lock graph or
+              the reconcile ledger (the edges through card-only locks
+              printed), racy pairs only on lock-free-ledger attributes,
+              the observed access profiles printed. (b)
               the churn drill at its defaults (4 nodes, RF=3, 16 shards,
               48 series, 60 requests/s for 4 s, add/repair/remove/
               replace under seeded network chaos): every SLO (no acked
@@ -390,6 +399,10 @@ Phases (each synchronises the device and fails the run on any error):
               plans of the plan corpus, one CUDA graph over the four
               slices, against the interpreter and one device; (f)
               dryrun_multichip, query.sharded_agg firing over HTTP
+  19. lint     m3lint over the checkout's m3_tpu_torch/ (python -m
+              m3_tpu_torch.analysis m3_tpu_torch/ --jobs 0 --no-cache),
+              host only: zero findings; the files analyzed and the wall
+              time printed
 
 Every kernel's launches are counted per path (slice, query, storage,
 flush, graphite, plan, aggregator, durability, cluster, coordinator,
@@ -635,9 +648,16 @@ def main() -> int:
         "--parent", metavar="DIR",
         help="a checkout (or archive) of the parent commit: also time its "
              "decode and window wrappers against this checkout's, in turns")
+    parser.add_argument(
+        "--churn-witness", metavar="N", type=int, default=0,
+        help="only run phase 17 (b)'s churn drill N times in one process "
+             "under the lockdep witness (no kernels line)")
     args = parser.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    if args.churn_witness:
+        # Installed at the package's import, before any lock is made.
+        os.environ["M3_TPU_LOCKDEP"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -669,6 +689,10 @@ def main() -> int:
     print(card_line, flush=True)
     phase(f"device {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    if args.churn_witness:
+        ck.build()
+        return _churn_witness(args.churn_witness)
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
@@ -898,6 +922,9 @@ def main() -> int:
     for name, n in _mesh_phase(corpus, plan_corpus, t_q).items():
         by_path[name]["mesh"] = n
     del plan_corpus
+
+    # -- 19. m3lint over the checkout's port --------------------------------
+    _lint_phase(here)
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -6713,6 +6740,7 @@ def _harness_kill(root: str) -> dict:
           f"lockdep, {len(races)} racewatch")
     cycles = [c for d in locks for c in d["cycles"]]
     check(not cycles, f"harness (a): lockdep cycles {cycles}")
+    _harness_reconcile(ld_dir, rw_dir)
     edges = sum(len(d["edges"]) for d in locks)
     observed = sum(d["observed"] for d in races)
     racy = {a["attr"]: len(a["racy"]) for d in races for a in d["attrs"]
@@ -6730,6 +6758,204 @@ def _harness_kill(root: str) -> dict:
           f"{observed} observed access profiles, racy pairs by attribute "
           f"{racy}; its launches {child}")
     return child
+
+
+# Locks only the card takes: the kernels' extension build and the query
+# path's upload cache (ops/temporal._cached_put puts through it on `cuda`
+# only). Phase 17 (a) prints the witnessed edges that touch them.
+CARD_ONLY_LOCKS = ("codec_kernels._BUILD_LOCK", "temporal._PUT_CACHE_LOCK")
+
+
+def _harness_reconcile(ld_dir: str, rw_dir: str) -> None:
+    """Phase 17 (a)'s dumps held to the static model: lockdep's edges to
+    the static lock graph and the reconcile ledger (no cycle, none
+    unreconciled), racewatch's racy pairs to the lock-free ledger and the
+    protection model (m3_tpu_torch.analysis.witness)."""
+    from m3_tpu_torch.analysis import witness
+
+    print("harness (a) lockdep against the static lock graph:", flush=True)
+    rc = witness.lockdep_check([ld_dir], verbose=True)
+    check(rc == 0, f"harness (a): witness lockdep exited {rc}")
+    print("harness (a) racewatch against the lock-free ledger:", flush=True)
+    rc = witness.race_check([rw_dir])
+    check(rc == 0, f"harness (a): witness race exited {rc}")
+    dumps = witness.load_dumps([ld_dir], "lockdep-*.json")
+    seen, _, _ = witness.witnessed_edges(dumps)
+    card = sorted(f"{a} -> {b} x{info['count']} ({info['site']})"
+                  for (a, b), info in seen.items()
+                  if a in CARD_ONLY_LOCKS or b in CARD_ONLY_LOCKS)
+    _card(f"harness (a) edges through card-only locks {CARD_ONLY_LOCKS}: "
+          f"{card or 'none witnessed'}")
+
+
+class _StallProbe:
+    """A thread that sleeps 1 ms at a time and records every wake-up later
+    than `min_stall_s`: while another thread holds the interpreter (a
+    long call that does not release the GIL) or the host is starved,
+    nothing in the process runs, a read's handler included. Each stall is
+    (start on the monotonic clock, seconds, where the churn thread's
+    thread stood when the probe woke: its innermost frame in the port)."""
+
+    def __init__(self, min_stall_s: float = 0.02):
+        import threading
+
+        self.min_stall_s = min_stall_s
+        self.stalls = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="churn-witness-probe")
+
+    @staticmethod
+    def _driver_frame() -> str:
+        import threading
+
+        for t in threading.enumerate():
+            if t.name == "churn-driver":
+                f = sys._current_frames().get(t.ident)
+                while f is not None and "m3_tpu_torch" not in \
+                        f.f_code.co_filename:
+                    f = f.f_back
+                if f is not None:
+                    return (f"{f.f_code.co_filename.rsplit('m3_tpu_torch/', 1)[-1]}"
+                            f":{f.f_code.co_name}:{f.f_lineno}")
+        return "-"
+
+    def _loop(self):
+        last = time.monotonic()
+        while not self._stop.is_set():
+            time.sleep(0.001)
+            now = time.monotonic()
+            late = now - last - 0.001
+            if late > self.min_stall_s:
+                self.stalls.append((last, late, self._driver_frame()))
+            last = now
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    def within(self, t0: float, t1: float):
+        """The stalls that overlap [t0, t1), longest first."""
+        return sorted((s for s in self.stalls if s[0] < t1 and
+                       s[0] + s[1] > t0), key=lambda s: -s[1])
+
+
+def _churn_witness(runs: int) -> int:
+    """Phase 17 (b)'s churn drill `runs` times in one process under the
+    lockdep witness: each run's read and write p99, its churn ops and
+    interpreter stalls, and the five locks that parked longest in it
+    (seconds summed over its contended acquires, and the longest park),
+    then the verdict against the static model over all runs."""
+    import tempfile
+
+    from m3_tpu_torch.analysis import witness
+    from m3_tpu_torch.testing import scenario
+    from m3_tpu_torch.utils import lockdep
+
+    check(lockdep.installed(), "churn witness: lockdep is not installed")
+    graph = lockdep.witness_graph()
+    starts = []
+    real_run = scenario.LoadGen.run
+
+    def timed_run(self, fn, join_timeout_s=30.0):
+        starts.append(time.monotonic())
+        return real_run(self, fn, join_timeout_s)
+
+    ops = []
+    real_op = scenario.ChurnScenario._churn_op
+
+    def timed_op(self, op):
+        t = time.monotonic()
+        try:
+            return real_op(self, op)
+        finally:
+            ops.append((op, t, time.monotonic() - t))
+
+    scenario.LoadGen.run = timed_run
+    scenario.ChurnScenario._churn_op = timed_op
+    out_dir = tempfile.mkdtemp(prefix="m3-churn-witness-")
+    reads = []
+    for i in range(runs):
+        before = graph.snapshot()
+        t0 = time.perf_counter()
+        drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions())
+        try:
+            ops.clear()
+            with _gc_pauses() as pauses, _StallProbe() as probe:
+                res = drill.run()
+            try:
+                drill.verify(res)
+                verdict = "verify ok"
+            except AssertionError as err:
+                verdict = f"verify FAILED: {str(err)[:300]}"
+        finally:
+            drill.close()
+        rep = res.report
+        slow = sorted(rep.select(kind="read", outcome="ok"),
+                      key=lambda r: -r.latency_s)[:5]
+        after = graph.snapshot()
+        times = witness.block_times([("run", after)])
+        for key, (parks, secs, _mx) in witness.block_times(
+                [("run", before)]).items():
+            times[key][0] -= parks
+            times[key][1] -= secs
+        top = witness.longest_blocked(
+            {k: v for k, v in times.items() if v[0]})
+        read_p99 = rep.quantile_latency(0.99, kind="read")
+        reads.append(read_p99)
+        _card(f"churn witness run {i + 1}/{runs}: read p99 {read_p99!r} s, "
+              f"write p99 {rep.quantile_latency(0.99, kind='write')!r} s, "
+              f"outcomes {rep.outcomes()}, {verdict}; "
+              f"{time.perf_counter() - t0!r} s; longest blocked edges "
+              f"(from, to, parks, seconds, longest park) {top}; slowest "
+              f"reads (due s, phase, latency s) "
+              f"{[(r.t_due_s, r.phase, r.latency_s) for r in slow]}; full "
+              f"GC pauses (ms) {pauses}")
+        # What ran while the slowest reads were in flight (from the
+        # earliest one's due time to the latest one's end): the churn ops
+        # and the interpreter stalls, in seconds into the load.
+        base = starts[-1]
+        lo = min(r.t_due_s for r in slow) if slow else 0.0
+        hi = max(r.t_due_s + r.latency_s for r in slow) if slow else 0.0
+        stalls = probe.within(base + lo, base + hi)
+        _card(f"churn witness run {i + 1}/{runs}: from {lo!r} to {hi!r} s "
+              f"into the load: churn ops (op, start s, seconds) "
+              f"{[(op, t - base, d) for op, t, d in ops]}; "
+              f"{len(stalls)} interpreter stalls over "
+              f"{probe.min_stall_s * 1e3:g} ms summing "
+              f"{sum(d for _t, d, _f in stalls)!r} s, the longest (start s, "
+              f"seconds, the churn thread's frame) "
+              f"{[(t - base, d, f) for t, d, f in stalls[:5]]}; every "
+              f"stall over 100 ms in the run (start s into the load, "
+              f"seconds): {[(t - base, d) for t, d, _f in probe.stalls if d > 0.1]}")
+    scenario.ChurnScenario._churn_op = real_op
+    scenario.LoadGen.run = real_run
+    lockdep.dump_now(os.path.join(out_dir, f"lockdep-{os.getpid()}.json"))
+    rc = witness.lockdep_check([out_dir], verbose=True)
+    _card(f"churn witness: read p99 over {runs} runs {reads!r}; witness "
+          f"lockdep exited {rc}")
+    return 0 if rc == 0 else 1
+
+
+def _lint_phase(here: str) -> None:
+    """Phase 19: m3lint over the checkout's m3_tpu_torch/, host only;
+    zero findings, the files analyzed and the wall time printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "m3_tpu_torch.analysis", "m3_tpu_torch/",
+         "--jobs", "0", "--no-cache"],
+        cwd=here, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-500:]]
+    _card(f"lint: phase 19 in {secs!r} s: {tail[0]}")
+    check(proc.returncode == 0,
+          f"lint: m3lint exited {proc.returncode}: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    phase(f"lint: m3lint clean over m3_tpu_torch/ in {secs:.1f}s")
 
 
 def _harness_churn() -> dict:

@@ -288,6 +288,7 @@ class Elem:
         # The per-window scalar emit exists to serve the retained
         # bit-exactness oracle (reduce_and_emit_ref); production flushes
         # batch through list.py emit_batch and never take this loop.
+        # m3lint: disable=per-datapoint-callback-in-flush
         for at in self.agg_types:
             if at in self._q_idx:
                 value = quantile_vals[self._q_idx[at]]

@@ -260,7 +260,7 @@ def emit_batch(batch: FlushBatch, flush_fn: Callable,
     col_groups: Optional[list] = [] if columnar is not None else None
     # C-speed consumer for the map-driven callback shim: maxlen=0 KEEPS
     # NOTHING by design (it exists to drive the map, not to buffer).
-    drain = deque(maxlen=0).extend
+    drain = deque(maxlen=0).extend  # m3lint: disable=unbounded-queue
     for cls, rows in classes.items():
         m = _columnar_moments(rows.buckets, cls.needed)
         nrows = len(rows.starts)
@@ -320,6 +320,7 @@ def emit_batch(batch: FlushBatch, flush_fn: Callable,
             # Compat shim for plain-callable forward sinks (tests, the
             # embedded downsampler); routed writers batch per
             # destination through forward_batch above.
+            # m3lint: disable=per-datapoint-callback-in-flush
             for item in fsink:
                 forward_fn(*item)
     return n

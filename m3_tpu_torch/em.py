@@ -88,10 +88,13 @@ class Operator:
         self._proc = subprocess.Popen(
             self.argv(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             cwd=_ROOT, text=True)
-        self.output = []
+        # Each child's drainer appends to its own list: a drainer of an
+        # earlier child that outlived its join never writes into this one.
+        self.output = out = []
         lines: "queue.Queue" = queue.Queue()
         self._drainer = threading.Thread(
-            target=self._drain, args=(self._proc.stdout, lines), daemon=True)
+            target=self._drain, args=(self._proc.stdout, lines, out),
+            daemon=True)
         self._drainer.start()
         deadline = time.monotonic() + timeout_s
         while True:
@@ -110,11 +113,12 @@ class Operator:
                 self.endpoint = line.rsplit(" ", 1)[-1].strip()
                 return self.endpoint
 
-    def _drain(self, stream, lines: "queue.Queue"):
-        """Every line of the child's output onto `output` (and the queue
-        start() waits on) until the child closes it."""
+    @staticmethod
+    def _drain(stream, lines: "queue.Queue", out: List[str]):
+        """Every line of the child's output onto `out` (its `output`) and
+        the queue start() waits on, until the child closes it."""
         for line in stream:
-            self.output.append(line)
+            out.append(line)
             lines.put(line)
         lines.put(None)
 

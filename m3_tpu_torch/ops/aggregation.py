@@ -26,7 +26,8 @@ _SIGN = torch.iinfo(torch.int32).min  # the f32 sign bit as int32
 
 
 def _masked(values, mask, fill):
-    return torch.where(mask, values, torch.tensor(fill, dtype=values.dtype,
+    # a scalar fill on the values' device, not block data
+    return torch.where(mask, values, torch.tensor(fill, dtype=values.dtype,  # m3lint: disable=unbudgeted-device-put
                                                   device=values.device))
 
 

@@ -53,7 +53,9 @@ def shl32(x: torch.Tensor, s) -> torch.Tensor:
     32 bits; s >= 32 (or s < 0) yields 0, as the reference's _shl32 does.
     Explicit, not left to the hardware: an int32 shift by 32 is masked to
     a shift by 0 on CUDA."""
-    s = torch.as_tensor(s, dtype=I64, device=x.device)
+    # a shift amount: a scalar, or a tensor already on x's device (as_tensor
+    # does not copy it)
+    s = torch.as_tensor(s, dtype=I64, device=x.device)  # m3lint: disable=unbudgeted-device-put
     out = (x << s.clamp(0, 31)) & M32
     return torch.where((s < 0) | (s >= 32), 0, out)
 
@@ -61,7 +63,8 @@ def shl32(x: torch.Tensor, s) -> torch.Tensor:
 def shr32(x: torch.Tensor, s) -> torch.Tensor:
     """Logical right shift of u32 words held in int64 [0, 2^32); s >= 32
     (or s < 0) yields 0, as the reference's _shr32 does."""
-    s = torch.as_tensor(s, dtype=I64, device=x.device)
+    # a shift amount, as in shl32
+    s = torch.as_tensor(s, dtype=I64, device=x.device)  # m3lint: disable=unbudgeted-device-put
     out = x >> s.clamp(0, 31)
     return torch.where((s < 0) | (s >= 32), 0, out)
 
@@ -79,12 +82,14 @@ def low_mask(n) -> torch.Tensor:
 
 def shl64(x: torch.Tensor, s) -> torch.Tensor:
     """Logical left shift; s < 0 or s >= 64 yields 0."""
-    return shl64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))
+    # a shift amount, as in shl32
+    return shl64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))  # m3lint: disable=unbudgeted-device-put
 
 
 def shr64(x: torch.Tensor, s) -> torch.Tensor:
     """Logical right shift; s < 0 or s >= 64 yields 0."""
-    return shr64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))
+    # a shift amount, as in shl32
+    return shr64_t(x, torch.as_tensor(s, dtype=I64, device=x.device))  # m3lint: disable=unbudgeted-device-put
 
 
 # The typed forms below (a tensor count, literal constants, tensors on the

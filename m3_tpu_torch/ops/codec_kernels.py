@@ -41,6 +41,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "m3_tpu_torch"
 SOURCES = ("binding.cpp", "pack.cu", "decode.cu", "hash.cu", "window.cu")
 
 
+# The card's oracles of these kernels: the tests that hold each against its
+# plain version on the card, and the chip_smoke.py phase that does so on
+# every run (m3lint's unguarded-kernel-dispatch reads both).
+_CARD_ORACLE = "tests/test_torch_cuda.py"
+_CHIP_SMOKE_PHASE = "3. kernels against their plain versions"
+
 _BUILD_LOCK = threading.Lock()
 _MODULE = None
 

@@ -75,8 +75,10 @@ def grouped_reduce(values: np.ndarray, group_ids: np.ndarray, n_groups: int,
     dev = resolve(device)
     if values.size == 0:
         return np.full((n_groups, values.shape[1]), np.nan)
-    v = torch.from_numpy(np.ascontiguousarray(values, np.float32)).to(dev)
-    gid = torch.from_numpy(np.asarray(group_ids, np.int64)).to(dev)
+    # transient: the f32 plane and its group ids live only for this reduce,
+    # whose f64 result goes back to the host
+    v = torch.from_numpy(np.ascontiguousarray(values, np.float32)).to(dev)  # m3lint: disable=unbudgeted-device-put
+    gid = torch.from_numpy(np.asarray(group_ids, np.int64)).to(dev)  # m3lint: disable=unbudgeted-device-put
     out = _segment_math(v, gid, n_groups, kind)
     return out.cpu().numpy().astype(np.float64)
 

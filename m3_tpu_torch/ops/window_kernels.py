@@ -24,6 +24,11 @@ from .codec_kernels import _check, build
 F32 = torch.float32
 STATS = ("count", "sum", "min", "max", "last", "m2")
 _STAT_INDEX = {name: i for i, name in enumerate(STATS)}  # csrc/window.cu Stat
+# The card's oracles (m3lint's unguarded-kernel-dispatch): the tests that
+# hold K4 against window_stat_plain on the card, and the chip_smoke.py
+# check that does so at three grids on every run.
+_CARD_ORACLE = "tests/test_torch_cuda.py"
+_CHIP_SMOKE_PHASE = "def _check_window("
 
 
 def window_stat_plain(resid, W: int, stride: int, stat: str):

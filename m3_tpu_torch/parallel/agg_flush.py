@@ -88,8 +88,10 @@ def quantile_rank_rows(tile: np.ndarray, counts: np.ndarray, qs: tuple,
     dev = resolve(device)
 
     def select():
-        values = torch.from_numpy(tile).to(dev)
-        cnt = torch.from_numpy(np.ascontiguousarray(counts, np.int32)).to(dev)
+        # transient: the flush tile and counts live for this one quantile
+        # selection
+        values = torch.from_numpy(tile).to(dev)  # m3lint: disable=unbudgeted-device-put
+        cnt = torch.from_numpy(np.ascontiguousarray(counts, np.int32)).to(dev)  # m3lint: disable=unbudgeted-device-put
         return agg.quantile_rank_select(values, cnt, qs).cpu().numpy()
 
     return guard.dispatch("agg_flush", select)

@@ -111,7 +111,9 @@ def place(t: torch.Tensor, dev: torch.device,
         t = t.clone()
     if charge and dev.type == "cuda":
         return hbm.budgeted_put(t, dev)
-    return t.to(dev)
+    # the uncharged branch: a CPU slice, or a transient slice the caller frees
+    # before returning
+    return t.to(dev)  # m3lint: disable=unbudgeted-device-put
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -173,7 +175,9 @@ def split_rows(t: torch.Tensor, mesh: Mesh, axes,
 def concat_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The parts' rows in order, on the first part's device."""
     dev = parts[0].device
-    return torch.cat([p.to(dev) for p in parts])
+    # a sharded root's rows gathered onto the first slice's device, the
+    # query's transient result
+    return torch.cat([p.to(dev) for p in parts])  # m3lint: disable=unbudgeted-device-put
 
 
 def map_slices(fn: Callable, mesh: Mesh, args: Sequence,
@@ -260,7 +264,9 @@ def _collective(vals: np.ndarray, mesh: Mesh, axes, combine) -> np.ndarray:
     out = np.empty(vals.shape, dtype=object)
     for group in _groups(mesh, _axes(axes)):
         head = mesh.device_at(group[0])
-        parts = [vals[c].to(head) for c in group]
+        # a collective's group on its head device, transient until the combine
+        # returns
+        parts = [vals[c].to(head) for c in group]  # m3lint: disable=unbudgeted-device-put
         total = combine(parts)
         for c in group:
             out[c] = total.to(mesh.device_at(c))
@@ -300,7 +306,9 @@ def reduce_list(parts: Sequence[torch.Tensor], how: str) -> torch.Tensor:
     """One group's collective over a plain list of per-slice tensors, on
     the first part's device: "sum", "min" or "max", in list order."""
     dev = parts[0].device
-    ps = [p.to(dev) for p in parts]
+    # a collective's parts on the first part's device, transient until the
+    # combine returns
+    ps = [p.to(dev) for p in parts]  # m3lint: disable=unbudgeted-device-put
     return _fold(ps, {"sum": torch.add, "min": _minimum, "max": _maximum}[how])
 
 

@@ -286,7 +286,9 @@ def encode_block(block_start: int, series_indices, tdense, vdense, npoints,
     inp = tsz.prepare_encode_inputs(tdense // unit.nanos, vdense, npoints)
     got = par_ingest.flush_encode_prepared(inp, max_words=mw, device=dev)
     if got is not None:
-        words_dev, nbits_dev = (t.to(dev) for t in got)
+        # the mesh encode's words onto the block's device: kept only when the
+        # block cache retains them, which charges them
+        words_dev, nbits_dev = (t.to(dev) for t in got)  # m3lint: disable=unbudgeted-device-put
         _FLUSH_METRICS.counter("mesh_encode").inc()
     else:
         words_dev, nbits_dev = tsz.encode_single(inp, max_words=mw,
@@ -299,7 +301,9 @@ def encode_block(block_start: int, series_indices, tdense, vdense, npoints,
     # with the block object.
     encoded_dev = None
     if block_cache.wants_encoded(dev):
-        encoded_dev = (words_dev, torch.from_numpy(npoints).to(dev))
+        # the npoints vector kept beside those words under the same
+        # block-cache charge
+        encoded_dev = (words_dev, torch.from_numpy(npoints).to(dev))  # m3lint: disable=unbudgeted-device-put
     words = words_dev[:s].cpu().numpy().view(np.uint32)
     nbits = nbits_dev[:s].cpu().numpy()
     # Every pack silently drops bits past max_words; an undersized

@@ -62,7 +62,9 @@ def murmur3_32(data: bytes, seed: int = 0) -> int:
 # (lru) and key size (oversize IDs skip the cache), because callers hash
 # client-supplied IDs before any validation. 64k x <= 256 B is <= ~16 MB.
 _MURMUR_CACHE_MAX_KEY = 256
-_murmur3_32_lru = functools.lru_cache(maxsize=65536)(murmur3_32)
+# the public wrapper below normalizes every non-bytes buffer before this
+# memo sees it, so the unhashable/mutable-key hazard cannot reach it
+_murmur3_32_lru = functools.lru_cache(maxsize=65536)(murmur3_32)  # m3lint: disable=cache-key-buffer
 
 
 def murmur3_32_cached(data: bytes, seed: int = 0) -> int:

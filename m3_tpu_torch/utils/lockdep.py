@@ -27,6 +27,10 @@ What is recorded, per process:
     non-blocking probe failed and the thread parked), the edge is
     additionally flagged ``blocked``; `on_block` records it BEFORE the
     thread parks, so a real deadlock still leaves its edge.
+  * BLOCK TIMES: how long each contended acquire parked, summed and
+    maximal per (innermost held -> acquired) pair, "-" standing for
+    nothing held (`block_times` in the dump, beside the edges; the
+    reference records none).
   * CYCLES, detected ONLINE: adding edge A -> B runs a reachability
     check B ~> A over the witnessed graph; a hit records the full
     cycle path at witness time (same-NAME edges between different
@@ -84,6 +88,8 @@ class LockdepGraph:
         self.adj: dict = {}            # a -> set of b (cycle detection)
         self.cycles: list = []         # recorded cycle paths
         self.nodes: dict = {}          # name -> kind
+        # (a, b) -> [parks, total seconds, longest seconds]
+        self.block_times: dict = {}
 
     # ------------------------------------------------------------- held stack
 
@@ -119,6 +125,21 @@ class LockdepGraph:
         self._edge(held[-1][0], name, True, site)
         with self._mu:
             return len(self.cycles) > ncycles
+
+    def on_blocked_for(self, name: str, obj, seconds: float):
+        """A contended acquire of `name` parked `seconds` before it got
+        the lock: charged to (innermost held -> name), or ("-" -> name)
+        with nothing held. Called before the acquisition is pushed on the
+        held stack."""
+        held = self._held()
+        if any(o is obj for _n, o in held):
+            return
+        with self._mu:
+            t = self.block_times.setdefault(
+                (held[-1][0] if held else "-", name), [0, 0.0, 0.0])
+            t[0] += 1
+            t[1] += seconds
+            t[2] = max(t[2], seconds)
 
     def on_release(self, name: str, obj):
         held = self._held()
@@ -183,6 +204,12 @@ class LockdepGraph:
                     for (a, b), info in sorted(self.edges.items())
                 ],
                 "cycles": [list(c) for c in self.cycles],
+                "block_times": [
+                    {"from": a, "to": b, "parks": n, "total_s": tot,
+                     "max_s": mx}
+                    for (a, b), (n, tot, mx) in
+                    sorted(self.block_times.items())
+                ],
             }
 
     def dump(self, path: str):
@@ -232,8 +259,10 @@ class _WitnessedLock:
                 dump_now()
             except Exception:  # noqa: BLE001 — diagnostics must never
                 pass               # turn a deadlock into a crash
+        t0 = time.perf_counter()
         got = self._inner.acquire(True, timeout)
         if got:
+            _GRAPH.on_blocked_for(self._name, self, time.perf_counter() - t0)
             _GRAPH.on_acquire(self._name, self, True, site,
                               record_edge=False)
         return got

@@ -472,6 +472,16 @@ for make in (lambda: Engine(DictStorage(series)),
     except RuntimeError:
         pass
 ok = ok and not os.path.exists(os.path.join(sroot, "refused"))
+# m3lint on the port: every module of the analyzer, a run of its CLI and
+# a witness check that refuses an empty dump directory
+import contextlib, importlib, io, pkgutil
+import m3_tpu_torch.analysis as m3lint
+for info in pkgutil.walk_packages(m3lint.__path__, "m3_tpu_torch.analysis."):
+    importlib.import_module(info.name)
+from m3_tpu_torch.analysis import __main__ as lint_main, witness
+with contextlib.redirect_stdout(io.StringIO()):
+    ok = ok and lint_main.main(["m3_tpu_torch/analysis", "--no-cache"]) == 0
+    ok = ok and witness.main(["numerics", sroot]) == 2
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "m3_tpu"
               or m.startswith("m3_tpu."))
@@ -521,7 +531,8 @@ def test_port_slice_imports_neither_jax_nor_m3_tpu():
     attached, the dry run over four CPU entries (sharded ingest, decode
     round trip, sum_rate, a coordinator's sharded aggregation over HTTP),
     a mesh sum_rate under attach; the dry run over cards refuses without
-    one."""
+    one. Then m3lint on the port: every module of m3_tpu_torch.analysis,
+    its CLI over its own directory and a witness check."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -2,10 +2,11 @@
 the reference's (m3_tpu/utils/lockdep.py): the graph's recording, online
 cycle detection and block-time flagging, the witnessed-lock proxy with
 Condition waits, the env-gated install in a child process, and the site
-names, which must be the reference's for the counterpart classes.
-
-The reference's cases for scripts/lockdep_check.py are not mirrored: the
-port does not port analysis/, so its checks read the dumps directly."""
+names, which must be the reference's for the counterpart classes, the
+block times the port adds to the dump, and the reference's cases for
+scripts/lockdep_check.py run against the port's counterpart,
+`python -m m3_tpu_torch.analysis.witness lockdep` (the static lock graph
+of m3_tpu_torch/ and the port's reconcile ledger), exit codes included."""
 
 import json
 import os
@@ -343,3 +344,150 @@ class TestEndToEnd:
         d = json.loads(open(path).read())
         assert d["pid"] == os.getpid() and d["nodes"] == {}
         assert d["cycles"] == [] and d["edges"] == []
+
+
+class TestBlockTimes:
+    def test_contended_acquire_charges_its_park_to_the_edge(self):
+        g = LockdepGraph()
+        a, b = object(), object()
+        g.on_acquire("A", a, False, "x:1")
+        g.on_block("B", b, "x:2")
+        g.on_blocked_for("B", b, 0.25)
+        g.on_acquire("B", b, True, "x:2", record_edge=False)
+        g.on_release("B", b)
+        g.on_block("B", b, "x:3")
+        g.on_blocked_for("B", b, 0.5)
+        snap = g.snapshot()
+        assert snap["block_times"] == [{"from": "A", "to": "B", "parks": 2,
+                                        "total_s": 0.75, "max_s": 0.5}]
+        # the edges themselves stay the reference's
+        assert snap["edges"] == [{"from": "A", "to": "B", "count": 2,
+                                  "blocked": 2, "site": "x:2"}]
+
+    def test_park_with_nothing_held_is_charged_to_a_dash(self):
+        g = LockdepGraph()
+        g.on_blocked_for("A", object(), 1.0)
+        snap = g.snapshot()
+        assert snap["block_times"] == [{"from": "-", "to": "A", "parks": 1,
+                                        "total_s": 1.0, "max_s": 1.0}]
+        assert snap["edges"] == []
+
+
+@pytest.fixture(scope="module")
+def static_graph():
+    """The static lock graph of m3_tpu_torch/, built once for the file."""
+    from m3_tpu_torch.analysis import witness
+
+    return witness.static_lock_graph()
+
+
+def _run_check(tmp_path, graph, *dumps):
+    """`python -m m3_tpu_torch.analysis.witness lockdep DIR` through its
+    main(), with the file's static graph: (returncode, stdout)."""
+    import contextlib
+    import io
+    import types
+
+    from m3_tpu_torch.analysis import witness
+
+    for i, dump in enumerate(dumps, 1):
+        (tmp_path / f"lockdep-{i}.json").write_text(json.dumps(dump))
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(witness, "static_lock_graph", lambda root=None: graph)
+        rc = witness.main(["lockdep", str(tmp_path)])
+    return types.SimpleNamespace(returncode=rc, stdout=out.getvalue())
+
+
+class TestLockdepCheck:
+    """The reference's tests/test_lockdep.py TestLockdepCheck and
+    TestUnionCycle on the port's checker."""
+
+    BASE = {"pid": 1, "argv": ["x"], "time": 0.0, "nodes": {},
+            "edges": [], "cycles": []}
+
+    def test_green_on_statically_known_edge(self, tmp_path, static_graph):
+        d = dict(self.BASE)
+        d["edges"] = [{"from": "hbm._SHARED_LOCK", "to": "HBMBudget._lock",
+                       "count": 1, "blocked": 0, "site": "hbm.py:1"}]
+        out = _run_check(tmp_path, static_graph, d)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "GREEN" in out.stdout
+
+    def test_cycle_fails_with_exit_2(self, tmp_path, static_graph):
+        d = dict(self.BASE)
+        d["cycles"] = [["A._x", "B._y", "A._x"]]
+        out = _run_check(tmp_path, static_graph, d)
+        assert out.returncode == 2
+        assert "cycle" in out.stdout
+
+    def test_unreconciled_edge_fails_with_exit_1(self, tmp_path, static_graph):
+        d = dict(self.BASE)
+        d["edges"] = [{"from": "Nope._a", "to": "Nada._b", "count": 3,
+                       "blocked": 1, "site": "zz.py:9"}]
+        out = _run_check(tmp_path, static_graph, d)
+        assert out.returncode == 1
+        assert "Nope._a -> Nada._b" in out.stdout
+
+    @pytest.mark.parametrize("edge", [
+        ("InsertQueue._drain_mu", "Shard.write_lock"),
+        ("Shard.write_lock", "Breaker._lock"),
+        ("guard._LOCK", "HealthTracker._lock")])
+    def test_reconciled_edge_passes(self, tmp_path, static_graph, edge):
+        # entries actually present in the port's ledger, each witnessed by
+        # the kill drill's child (the static graph does not derive them)
+        d = dict(self.BASE)
+        d["edges"] = [{"from": edge[0], "to": edge[1], "count": 2,
+                       "blocked": 0, "site": "shard.py:210"}]
+        out = _run_check(tmp_path, static_graph, d)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "reconciled (1)" in out.stdout
+
+    def test_cross_process_abba_fails_exit_2(self, tmp_path, static_graph):
+        # one process witnesses A->B, another B->A: neither records a
+        # cycle online, only the union of the dumps closes the loop
+        d1 = dict(self.BASE)
+        d1["edges"] = [{"from": "Zed._a", "to": "Qux._b", "count": 1,
+                        "blocked": 0, "site": "p1:1"}]
+        d2 = dict(self.BASE)
+        d2["edges"] = [{"from": "Qux._b", "to": "Zed._a", "count": 1,
+                        "blocked": 1, "site": "p2:1"}]
+        out = _run_check(tmp_path, static_graph, d1, d2)
+        assert out.returncode == 2, out.stdout + out.stderr
+        assert "union-of-dumps" in out.stdout
+
+    def test_no_dump_fails_with_exit_1(self, tmp_path, static_graph):
+        out = _run_check(tmp_path, static_graph)
+        assert out.returncode == 1
+        assert "NO dumps" in out.stdout
+
+    def test_a_real_child_dump_is_green(self, tmp_path):
+        """A child driving the admission gate and the KV store under the
+        witness: every edge it witnesses is in the static graph."""
+        _dump("m3_tpu_torch", tmp_path)
+        out = subprocess.run(
+            [sys.executable, "-m", "m3_tpu_torch.analysis.witness",
+             "lockdep", str(tmp_path), "--verbose"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "AdmissionGate._lock -> Scope._lock" in out.stdout
+
+    def test_longest_blocked_orders_by_seconds_parked(self):
+        from m3_tpu_torch.analysis import witness
+
+        d = dict(self.BASE)
+        d["edges"] = [{"from": "A", "to": "B", "count": 3, "blocked": 2,
+                       "site": "s"},
+                      {"from": "C", "to": "D", "count": 1, "blocked": 1,
+                       "site": "s"}]
+        d["block_times"] = [{"from": "A", "to": "B", "parks": 2,
+                             "total_s": 0.1, "max_s": 0.08},
+                            {"from": "C", "to": "D", "parks": 1,
+                             "total_s": 0.3, "max_s": 0.3}]
+        d["block_times"].append({"from": "-", "to": "E", "parks": 4,
+                                 "total_s": 0.2, "max_s": 0.1})
+        edges, _, _ = witness.witnessed_edges([("x", d)])
+        assert edges[("A", "B")]["blocked_s"] == 0.1
+        assert witness.longest_blocked(witness.block_times([("x", d)])) == [
+            ("C", "D", 1, 0.3, 0.3), ("-", "E", 4, 0.2, 0.1),
+            ("A", "B", 2, 0.1, 0.08)]

@@ -2,11 +2,11 @@
 reference's (m3_tpu/utils/racewatch.py): access-profile recording, the
 racy-pair computation, the first-write (construction) skip, slot wrapping,
 registration before and after arming, the dump round trip, and the armed
-registrations of the port's SeriesRegistry and Elem in a child process.
-
-The reference's cases for scripts/race_check.py (its lock-free ledger and
-static protection model) are not mirrored: the port does not port
-analysis/."""
+registrations of the port's SeriesRegistry and Elem in a child process,
+and the reference's cases for scripts/race_check.py run against the
+port's counterpart, `python -m m3_tpu_torch.analysis.witness race` (the
+port's lock-free ledger and the static protection model of
+m3_tpu_torch/), exit codes included."""
 
 import json
 import os
@@ -376,3 +376,121 @@ class TestAutoInstallEndToEnd:
             assert by_attr["Elem._degraded"]["racy"] == []
         (ldump,) = tmp_path.glob("lockdep-*.json")
         assert json.loads(ldump.read_text())["cycles"] == []
+        # and the checker accepts the process's dump
+        gate = subprocess.run(
+            [sys.executable, "-m", "m3_tpu_torch.analysis.witness", "race",
+             str(tmp_path)], capture_output=True, text=True, cwd=str(ROOT),
+            timeout=300)
+        assert gate.returncode == 0, gate.stdout + gate.stderr
+
+
+@pytest.fixture(scope="module")
+def model():
+    """The static protection model of m3_tpu_torch/, built once."""
+    from m3_tpu_torch.analysis import race_rules
+
+    return race_rules.protection_model(str(ROOT / "m3_tpu_torch"))
+
+
+def run_gate(model, *paths):
+    """`python -m m3_tpu_torch.analysis.witness race PATHS` through its
+    main(), with the file's protection model: (returncode, stdout)."""
+    import contextlib
+    import io
+    import types
+
+    from m3_tpu_torch.analysis import race_rules, witness
+
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(race_rules, "protection_model", lambda root=None: model)
+        rc = witness.main(["race", *[str(p) for p in paths]])
+    return types.SimpleNamespace(returncode=rc, stdout=out.getvalue())
+
+
+def dump(tmp_path, name, attrs, observed=None):
+    n = observed if observed is not None else sum(
+        len(a["profiles"]) for a in attrs)
+    (tmp_path / name).write_text(json.dumps(
+        {"pid": 1, "observed": n, "attrs": attrs}))
+
+
+def attr_entry(ident, profiles):
+    return {"attr": ident,
+            "threads": len({p["thread"] for p in profiles}),
+            "profiles": profiles,
+            "racy": [[a, b] for a, b in racewatch.racy_pairs(profiles)]}
+
+
+class TestRaceCheckGate:
+    """The reference's tests/test_racewatch.py TestRaceCheckGate on the
+    port's checker."""
+
+    def test_ledger_blessed_racy_pair_is_green(self, tmp_path, model):
+        # SeriesRegistry._index is a DECLARED lock-free protocol: the
+        # witnessed disjoint-lock pair passes by declaration.
+        from m3_tpu_torch.analysis import race_rules
+
+        assert "SeriesRegistry._index" in race_rules.load_ledger()
+        dump(tmp_path, "racewatch-1.json", [attr_entry(
+            "SeriesRegistry._index",
+            [{"thread": 1, "locks": [], "write": True},
+             {"thread": 2, "locks": [], "write": False}])])
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 0, proc.stdout
+        assert "SeriesRegistry._index" in proc.stdout
+
+    def test_undeclared_racy_pair_fails(self, tmp_path, model):
+        dump(tmp_path, "racewatch-1.json", [attr_entry(
+            "NotOnLedger._x",
+            [{"thread": 1, "locks": [], "write": True},
+             {"thread": 2, "locks": [], "write": False}])])
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 1, proc.stdout
+        assert "UNDECLARED RACY PAIR" in proc.stdout
+
+    def test_locked_pair_matching_the_model_is_green(self, tmp_path, model):
+        ident = sorted(model)[0]
+        lock = model[ident][0]
+        dump(tmp_path, "racewatch-1.json", [attr_entry(
+            ident,
+            [{"thread": 1, "locks": [lock], "write": True},
+             {"thread": 2, "locks": [lock], "write": False}])])
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 0, proc.stdout
+
+    def test_locked_pair_on_the_wrong_lock_fails(self, tmp_path, model):
+        ident = sorted(model)[0]
+        dump(tmp_path, "racewatch-1.json", [attr_entry(
+            ident,
+            [{"thread": 1, "locks": ["Wrong._mu"], "write": True},
+             {"thread": 2, "locks": ["Wrong._mu"], "write": False}])])
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 1, proc.stdout
+        assert "PROTECTION MODEL MISMATCH" in proc.stdout
+
+    def test_refuses_vacuous_pass_nothing_observed(self, tmp_path, model):
+        dump(tmp_path, "racewatch-1.json", [], observed=0)
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 2
+        assert "vacuous" in proc.stdout
+
+    def test_refuses_vacuous_pass_single_threaded(self, tmp_path, model):
+        # observations happened, but never from two threads: refuse,
+        # don't bless
+        dump(tmp_path, "racewatch-1.json", [attr_entry(
+            "Some._attr",
+            [{"thread": 1, "locks": [], "write": True}])])
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 2
+        assert "vacuous" in proc.stdout
+
+    def test_refuses_empty_dump_dir(self, tmp_path, model):
+        proc = run_gate(model, tmp_path)
+        assert proc.returncode == 2
+
+    def test_sealed_block_device_is_on_the_ledger(self):
+        # set once in __post_init__ before the block is published
+        from m3_tpu_torch.analysis import race_rules
+
+        assert "SealedBlock.device" in race_rules.load_ledger()

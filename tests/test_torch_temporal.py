@@ -126,6 +126,34 @@ def test_rate_no_cancellation_on_huge_counter():
     assert got[0, -1] == pytest.approx(W, rel=1e-6)
 
 
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("W,stride", [(1, 1), (5, 1), (11, 3), (30, 2)])
+def test_wsum_bit_equal_to_reference(seed, W, stride):
+    """The windowed f32 sum adds each window left to right from 0.0, as
+    the reference's reduce_window does: bit-equal on seeded diff grids,
+    whose rows open windows on a 2e9 counter reset (the whole reset value
+    summed with small diffs and taken away again) and carry zeros and
+    NaN holes."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(600 + seed)
+    S, T = 9, 70
+    g = np.cumsum(rng.poisson(3.0, (S, T)), axis=1).astype(np.float64)
+    g *= 10.0 ** rng.integers(0, 7, (S, 1))
+    g[0, :35] += 2e9                      # the reset: down by 2e9 at 35
+    d = np.diff(g, axis=1, prepend=0.0)
+    d[0, 35] = g[0, 35]                   # adj of a reset is the new value
+    d[1, ::7] = 2e9
+    x = d.astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = 0.0
+    x[2, rng.random(T) < 0.2] = np.nan
+    want = np.asarray(jt._wsum(jnp.asarray(x), W, stride))
+    got = tt._wsum(torch.from_numpy(x), W, stride).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+
+
 def test_center_and_host_prep_are_the_reference_s():
     g = _grid(9, family="hostile")
     for a, b in zip(tt.center(g), jt.center(g)):
