@@ -7,9 +7,10 @@ layer, on one NVIDIA GPU.
 Run from the root of a checkout:  python3 chip_smoke.py [--parent DIR]
                                   python3 chip_smoke.py --churn-witness N
 (the second form builds the kernels and runs only phase 17 (b)'s churn
-drill N times in one process under the lockdep witness, printing each
-run's p99s, its churn ops, the interpreter stalls and the locks that
-parked longest; it prints no kernels line)
+drill N times in one process under the lockdep witness, its reads
+traced, printing each run's p99s, its churn ops by step, where the
+slowest reads waited, the interpreter stalls and the locks that parked
+longest; it prints no kernels line)
 
 Phases (each synchronises the device and fails the run on any error):
   1. device   require CUDA; print the card's name and power limit
@@ -73,9 +74,9 @@ Phases (each synchronises the device and fails the run on any error):
               max(1e-8, 1e-6 max|ref|)). Then a host-clock breakdown of
               the interpreter's steps for one rate + sum_over_time pair,
               and
-              the pair 5 times warm, 5 times cold (new grids of known
-              content: a content-hash hit) and 5 times missing (new
-              content each run) (medians, full GC pauses set apart,
+              the pair 3 times warm, 3 times cold (new grids of known
+              content: a content-hash hit) and 3 times missing (new
+              content each run) (cut from 5 each; medians, full GC pauses set apart,
               derived-input cache hits and misses, the host clock spent
               hashing, in host prep and in H2D); last, every cached
               executable a captured graph whose replay equals its eager
@@ -101,8 +102,10 @@ Phases (each synchronises the device and fails the run on any error):
               beside torch.cuda.memory_allocated().
               (b) the query phase's three corpora written through
               write_batch with tags into Database(ShardSet(16)) with the
-              namespace index, sealed, and phase 6's queries through
-              Engine(LocalStorage(db)) on the card (the default route):
+              namespace index, sealed, and ten of phase 6's queries (one
+              of each kind of plan, STORED_QUERIES; cut from all 32)
+              through Engine(LocalStorage(db)) on the card (the default
+              route):
               equal to phase 6's Engine(DictStorage) answers under phase
               6's bounds, the window kernel launched for each window
               query, and within the plan bounds of execute_range_ref over
@@ -325,7 +328,9 @@ Phases (each synchronises the device and fails the run on any error):
               rows have no gap and no duplicate window
   16. services the port's CLIs as child processes on the card, started
               through em.Operator (python -m m3_tpu_torch.services ...,
-              JSON configs, fixed free ports; each child's spawn to its
+              JSON configs, the node's two ports picked free up front
+              (its restart keeps them), every other listener on port 0;
+              each child's spawn to its
               listen line printed), their data under a temporary
               directory the phase removes; the children load the build of
               phase 2 and must not rebuild it. (a) a dbnode child with an
@@ -378,8 +383,10 @@ Phases (each synchronises the device and fails the run on any error):
               48 series, 60 requests/s for 4 s, add/repair/remove/
               replace under seeded network chaos): every SLO (no acked
               write lost, no critical probe shed, p99 2 s, bounded gate
-              and queues, converged placement, replica-equal checksums).
-              (c) the disk-fault drill (seed 7): bit rot quarantined,
+              and queues, converged placement, replica-equal checksums),
+              the GC's tracked objects and the live threads before it,
+              its full GC pauses and each op's seconds printed. (c) the
+              disk-fault drill (seed 7): bit rot quarantined,
               scrub and peer repair, a full disk's read-only posture and
               its recovery. (d) the compute-fault churn drill (seed 19):
               faults injected on the guarded seam, every guarded
@@ -403,10 +410,34 @@ Phases (each synchronises the device and fails the run on any error):
               m3_tpu_torch.analysis m3_tpu_torch/ --jobs 0 --no-cache),
               host only: zero findings; the files analyzed and the wall
               time printed
+  20. robustness  the port's robustness tier (m3_tpu_torch/scripts) on the
+              card. Started before phase 18, as child processes (python -m
+              m3_tpu_torch.scripts.<name>, no --device): the dbnode soak
+              (a services dbnode child with its coordinator, 3 HTTP
+              writers and the reference's query mix with
+              avg_over_time(soak_metric[2m:30s]) for 30 s: 0 write or query
+              errors, RSS growth under 256 MB, its device memory beside
+              RSS), the aggregator soak (30 s of timed counters over raw
+              TCP: flush progress, every closed window exact, RSS growth
+              under 192 MB) and the integration smoke (kv, two dbnodes, a
+              standalone coordinator, two aggregators and an HA pair as
+              services children: scatter-gather writes and queries, a
+              placement change through a KV watch, remote write, carbon,
+              the leader's SIGKILL and the follower's flushes, each step's
+              verdict printed). After phase 19, in this process through
+              each module's main(): fuzz_codec at 8 rounds (every bucket
+              twice: the pack kernel bit-equal to its plain version, the
+              decode's round trip, the scalar oracle, the concat/recode
+              merge), fuzz_index and fuzz_durability at 10 rounds,
+              fuzz_cluster at 1 round of 6 ops (seed 7: add, replace and
+              remove), every campaign at seed 7 with 0 invariant failures;
+              then the three services waited for, each exiting 0
 
 Every kernel's launches are counted per path (slice, query, storage,
 flush, graphite, plan, aggregator, durability, cluster, coordinator,
-pipeline, services, harness, mesh (its mesh calls alone);
+pipeline, services, harness, mesh (its mesh calls alone), robustness (the
+campaigns in this process and the launches phase 20's service children
+printed);
 phase 14 (g) counts in cluster), each count set to 0 just before its
 path is driven and read just after. A compiled plan's
 kernels are recorded once in its CUDA graph and launched by each replay:
@@ -480,7 +511,24 @@ EXACT = ("changes(", "resets(", "quantile_over_time(")
 FAMILY_TOL = {"deriv": dict(rtol=1e-3, atol=1e-4),
               "predict_linear": dict(rtol=2e-3, atol=1e-2),
               "holt_winters": dict(rtol=2e-3, atol=1e-2)}
-PAIR_RUNS = 5
+# Runs of each way of the rate + sum_over_time pair (cut from 5 for the
+# script's time, PERF.md §4).
+PAIR_RUNS = 3
+# Phase 7 (b)'s queries over LocalStorage: one of each kind of plan that
+# phase 6 runs over DictStorage (cut from all of ALL_QUERIES for the
+# script's time, PERF.md §4): a counter function, K4's plain and strided
+# windows, a two-moment window, a subquery, two aggregations, the
+# regression family, an exact compare, and the gauges' quantile.
+STORED_QUERIES = ("rate(bench_metric[5m])",
+                  "sum_over_time(bench_metric[5m])",
+                  "stddev_over_time(bench_metric[5m])",
+                  "sum_over_time(bench_metric[5m10s])",
+                  "max_over_time(rate(bench_metric[5m])[30m:1m])",
+                  "sum by (host) (rate(bench_requests[5m]))",
+                  "topk(5, rate(bench_requests[5m]))",
+                  "deriv(bench_gauge[5m])",
+                  "changes(bench_metric[5m])",
+                  "quantile_over_time(0.9, bench_gauge[5m])")
 # Start offsets, in steps, of the miss pair runs: each run takes a new one.
 _MISS_SHIFTS = itertools.count(1)
 # The query path's input caches and the compiled plans' graphs, tenants of
@@ -918,13 +966,24 @@ def main() -> int:
     for name, n in _harness_phase().items():
         by_path[name]["harness"] = n
 
-    # -- 18. the shard x time mesh on one card split four ways -------------
-    for name, n in _mesh_phase(corpus, plan_corpus, t_q).items():
-        by_path[name]["mesh"] = n
-    del plan_corpus
+    # -- 20 (started). the robustness tier's services: the two soaks and the
+    # integration smoke as child processes, beside phases 18 and 19 (their
+    # children count their own launches; nothing in this process does)
+    robust = _robustness_start(here)
+    try:
+        # -- 18. the shard x time mesh on one card split four ways ---------
+        for name, n in _mesh_phase(corpus, plan_corpus, t_q).items():
+            by_path[name]["mesh"] = n
+        del plan_corpus
 
-    # -- 19. m3lint over the checkout's port --------------------------------
-    _lint_phase(here)
+        # -- 19. m3lint over the checkout's port ----------------------------
+        _lint_phase(here)
+
+        # -- 20. the robustness tier: the campaigns, then the services ------
+        for name, n in _robustness_phase(robust).items():
+            by_path[name]["robustness"] = n
+    finally:
+        _robustness_stop(robust)
 
     kernels = []
     for name in ("pack", "decode", "hash", "window"):
@@ -1268,8 +1327,9 @@ def _lowers(q: str, start: int, end: int) -> bool:
     return plan is not None
 
 
-def _default_route_run(engine_for, start: int, end: int, label: str) -> dict:
-    """ALL_QUERIES once each through the default route on the card
+def _default_route_run(engine_for, start: int, end: int, label: str,
+                       queries=ALL_QUERIES) -> dict:
+    """`queries` once each through the default route on the card
     (execute_range, materialized, synchronised). Prints each query's
     route, fallback reason and window kernel launches; a query whose plan
     lowers must report `compiled`, and the window kernel must launch for
@@ -1284,7 +1344,7 @@ def _default_route_run(engine_for, start: int, end: int, label: str) -> dict:
     from m3_tpu_torch.parallel import compile as pcompile
 
     out = {}
-    for q in ALL_QUERIES:
+    for q in queries:
         eng = engine_for(q)
         before = wk.window_stat.launches
         tq = time.perf_counter()
@@ -1346,13 +1406,13 @@ def _check_plan(q, blk, ref, what: str) -> float:
 
 def _against_interpreter(engine_for, out: dict, start: int, end: int,
                          label: str) -> dict:
-    """ALL_QUERIES through execute_range_ref on the card: each default-
-    route answer in `out` held to the interpreter's (_check_plan).
+    """The queries of `out` through execute_range_ref on the card: each
+    default-route answer held to the interpreter's (_check_plan).
     Returns {query: interpreter block}."""
     import torch
 
     refs = {}
-    for q in ALL_QUERIES:
+    for q in out:
         tq = time.perf_counter()
         ref = engine_for(q).execute_range_ref(q, start, end, STEP_NS)
         ref.values
@@ -1932,8 +1992,9 @@ def _check_sealed_planes(db) -> None:
 
 def _stored_promql(corpus, plan_corpus, gauges, t, card_out) -> dict:
     """Phase 7 (b): the three query corpora written with tags into a
-    16-shard Database with the namespace index, sealed, and phase 6's
-    queries through Engine(LocalStorage(db)) on the card, held against phase 6's Engine(DictStorage) answers.
+    16-shard Database with the namespace index, sealed, and
+    STORED_QUERIES through Engine(LocalStorage(db)) on the card, held
+    against phase 6's Engine(DictStorage) answers.
     Returns the kernels' launches."""
     import torch
 
@@ -1969,14 +2030,15 @@ def _stored_promql(corpus, plan_corpus, gauges, t, card_out) -> dict:
     card = Engine(storage)
     start, end = int(t[30]), int(t[-1])
     q0 = time.perf_counter()
-    out = _default_route_run(lambda q: card, start, end, "storage (b)")
+    out = _default_route_run(lambda q: card, start, end, "storage (b)",
+                             STORED_QUERIES)
     query_s = time.perf_counter() - q0
     launches = dict(ck.launch_counts(), window=wk.window_stat.launches)
-    phase(f"storage (b): {len(ALL_QUERIES)} queries over LocalStorage on the card "
+    phase(f"storage (b): {len(out)} queries over LocalStorage on the card "
           f"in {query_s:.3f}s, launches {launches}; block cache "
           f"{block_cache.get_cache().stats()}")
     check(launches["window"] > 0, "the window kernel did not launch")
-    for q in ALL_QUERIES:
+    for q in STORED_QUERIES:
         blk, secs = out[q]
         ref = card_out[q][0]
         _check_query(q, blk, ref, "LocalStorage against DictStorage")
@@ -6113,7 +6175,9 @@ def _services_phase() -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="m3-services-")
-    ports = dict(zip(("node", "coord", "kv", "agg", "fed"), _free_ports(5)))
+    # The node keeps its ports across (b)'s restart, so they are picked
+    # here; every other child binds port 0 and prints the port it got.
+    ports = dict(zip(("node", "coord"), _free_ports(2)))
     ops, stops, children = {}, [], {}
     try:
         for name, service, text in (
@@ -6121,7 +6185,7 @@ def _services_phase() -> dict:
                     os.path.join(root, "node"), ports["node"],
                     ports["coord"])),
                 ("kv", "kv", json.dumps({
-                    "listen_address": f"127.0.0.1:{ports['kv']}"}))):
+                    "listen_address": "127.0.0.1:0"}))):
             op = ops[name] = em.Operator(os.path.join(root, name))
             op.setup(em.ProcessSpec(service, text, op.workdir))
             stops.append(functools.partial(op.stop, grace_s=120))
@@ -6129,8 +6193,8 @@ def _services_phase() -> dict:
         kv_ep = ops["kv"].endpoint
         op = ops["agg"] = em.Operator(os.path.join(root, "agg"))
         op.setup(em.ProcessSpec("aggregator", json.dumps({
-            "instance_id": "agg0", "listen_address":
-                f"127.0.0.1:{ports['agg']}", "kv_endpoint": kv_ep,
+            "instance_id": "agg0", "listen_address": "127.0.0.1:0",
+            "kv_endpoint": kv_ep,
             "placement_key": "_placement/m3aggregator",
             "flush_log": os.path.join(root, "agg", "flush.log"),
             "flush_interval": "1s"}), op.workdir))
@@ -6545,7 +6609,7 @@ def _svc_fed_start(ops, ports, root, stops) -> dict:
         admin.close()
     op = ops["fed"] = em.Operator(os.path.join(root, "fed"))
     op.setup(em.ProcessSpec("coordinator", json.dumps({
-        "listen_address": f"127.0.0.1:{ports['fed']}",
+        "listen_address": "127.0.0.1:0",
         "kv_endpoint": ops["kv"].endpoint, "namespace": "default"}),
         op.workdir))
     stops.append(functools.partial(op.stop, grace_s=120))
@@ -6801,6 +6865,7 @@ class _StallProbe:
 
         self.min_stall_s = min_stall_s
         self.stalls = []
+        self.threads = []   # (monotonic time, live threads), every 50 ms
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="churn-witness-probe")
@@ -6821,13 +6886,18 @@ class _StallProbe:
         return "-"
 
     def _loop(self):
-        last = time.monotonic()
+        import threading
+
+        last = sampled = time.monotonic()
         while not self._stop.is_set():
             time.sleep(0.001)
             now = time.monotonic()
             late = now - last - 0.001
             if late > self.min_stall_s:
                 self.stalls.append((last, late, self._driver_frame()))
+            if now - sampled >= 0.05:
+                self.threads.append((now, threading.active_count()))
+                sampled = now
             last = now
 
     def __enter__(self):
@@ -6882,7 +6952,8 @@ def _churn_witness(runs: int) -> int:
     for i in range(runs):
         before = graph.snapshot()
         t0 = time.perf_counter()
-        drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions())
+        drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions(
+            trace_reads=True))
         try:
             ops.clear()
             with _gc_pauses() as pauses, _StallProbe() as probe:
@@ -6932,6 +7003,7 @@ def _churn_witness(runs: int) -> int:
               f"{[(t - base, d, f) for t, d, f in stalls[:5]]}; every "
               f"stall over 100 ms in the run (start s into the load, "
               f"seconds): {[(t - base, d) for t, d, _f in probe.stalls if d > 0.1]}")
+        _churn_split(i + 1, runs, drill, probe, base)
     scenario.ChurnScenario._churn_op = real_op
     scenario.LoadGen.run = real_run
     lockdep.dump_now(os.path.join(out_dir, f"lockdep-{os.getpid()}.json"))
@@ -6939,6 +7011,64 @@ def _churn_witness(runs: int) -> int:
     _card(f"churn witness: read p99 over {runs} runs {reads!r}; witness "
           f"lockdep exited {rc}")
     return 0 if rc == 0 else 1
+
+
+def _churn_split(run: int, runs: int, drill, probe, base: float) -> None:
+    """One churn-witness run's op steps (ChurnScenario.op_steps) and the
+    served reads each held: per op, each step's count and seconds, the
+    reads in flight during it (their number, the slowest latency and
+    where their seconds went, ReadTrace.waits, summed) and the
+    interpreter stalls inside it; then the five slowest reads, each with
+    its waits, the step that ran when it started and the stalls over it.
+    Times are seconds into the load."""
+    reads = [r for r in drill.read_traces if r.outcome == "ok"]
+    ops = []
+    for s in drill.op_steps:
+        if s.op not in ops:
+            ops.append(s.op)
+    for op in ops:
+        steps = [s for s in drill.op_steps if s.op == op]
+        lo = min(s.start for s in steps)
+        hi = max(s.start + s.seconds for s in steps)
+        parts = []
+        for name in dict.fromkeys(s.step for s in steps):
+            spans = [(s.start, s.start + s.seconds) for s in steps
+                     if s.step == name]
+            held = [r for r in reads
+                    if any(r.start < b and r.end > a for a, b in spans)]
+            waits = {}
+            for r in held:
+                for k, v in r.waits().items():
+                    waits[k] = waits.get(k, 0.0) + v
+            stalls = sum(min(t + d, b) - max(t, a) for a, b in spans
+                         for t, d, _f in probe.within(a, b))
+            threads = max((n for t, n in probe.threads
+                           if any(a <= t < b for a, b in spans)), default=0)
+            parts.append(
+                (name, len(spans), round(sum(b - a for a, b in spans), 4),
+                 len(held),
+                 round(max((r.end - r.start for r in held), default=0.0), 4),
+                 {k: round(v, 4) for k, v in waits.items()},
+                 round(stalls, 4), threads))
+        _card(f"churn split run {run}/{runs}: {op} from {lo - base!r} to "
+              f"{hi - base!r} s (step, times, seconds, reads in flight, "
+              f"slowest s, their waits summed s, interpreter stalls s, "
+              f"most live threads) {parts}")
+    slow = sorted(reads, key=lambda r: r.start - r.end)[:5]
+    out = []
+    for r in slow:
+        running = sorted((s for s in drill.op_steps
+                          if s.start <= r.start < s.start + s.seconds),
+                         key=lambda s: s.seconds)
+        where = f"{running[0].op}: {running[0].step}" if running else "-"
+        stall = sum(min(t + d, r.end) - max(t, r.start)
+                    for t, d, _f in probe.within(r.start, r.end))
+        out.append((round(r.start - base, 4), round(r.end - r.start, 4),
+                    {k: round(v, 4) for k, v in r.waits().items()}, where,
+                    round(stall, 4)))
+    _card(f"churn split run {run}/{runs}: slowest reads (start s, latency "
+          f"s, waits s, the step running at its start, interpreter stalls "
+          f"over it s) {out}")
 
 
 def _lint_phase(here: str) -> None:
@@ -6961,12 +7091,29 @@ def _lint_phase(here: str) -> None:
 def _harness_churn() -> dict:
     """Phase 17 (b): ChurnScenario at its defaults on the card, every SLO
     of its verify(). Returns its warm-up's launches."""
+    import gc
+    import threading
+
     from m3_tpu_torch.testing import scenario
 
     t0 = time.perf_counter()
+    # What the earlier phases left in the process, and the full GCs inside
+    # the drill: each full GC walks every tracked object and holds the
+    # interpreter the reads wait on (ROADMAP C2).
+    tracked, threads = len(gc.get_objects()), threading.active_count()
     drill = scenario.ChurnScenario(scenario.ChurnScenarioOptions())
     try:
-        res = drill.verify(drill.run())
+        with _gc_pauses() as pauses:
+            res = drill.run()
+        ops = {}
+        for s in drill.op_steps:
+            lo, hi = ops.get(s.op, (s.start, s.start))
+            ops[s.op] = (min(lo, s.start), max(hi, s.start + s.seconds))
+        _card(f"harness (b) churn drill: {tracked} objects tracked by the "
+              f"GC and {threads} threads before it; full GC pauses (ms) "
+              f"in it {pauses}; its ops (op, seconds) "
+              f"{[(op, round(b - a, 4)) for op, (a, b) in ops.items()]}")
+        res = drill.verify(res)
     finally:
         drill.close()
     rep = res.report
@@ -7372,6 +7519,128 @@ def _mesh_dryrun(on_mesh, devs) -> None:
     check(out["sharded_agg"] == 1, f"mesh (f): {out}")
     _card(f"mesh (f) dryrun_multichip {out} in "
           f"{time.perf_counter() - s0!r} s")
+
+
+# Phase 20: the robustness tier (m3_tpu_torch/scripts) at the script's
+# depth: each fuzz_codec bucket twice, 10 index and durability rounds, one
+# cluster round of 6 ops (seed 7 draws add, replace and remove), both
+# soaks at the reference's 30 s floor, the integration smoke whole.
+ROBUST_SEED = 7
+ROBUST_CODEC_ROUNDS = 8
+ROBUST_INDEX_ROUNDS = ROBUST_DURABILITY_ROUNDS = 10
+ROBUST_CLUSTER_OPS = 6
+ROBUST_SOAK_S = 30
+ROBUST_SERVICES = ("soak", "soak_aggregator", "integration_smoke")
+ROBUST_WAIT_S = 420.0   # each service run's deadline
+
+
+def _robustness_start(here: str) -> dict:
+    """Phase 20's services, started: each of ROBUST_SERVICES as `python -m
+    m3_tpu_torch.scripts.<name>` (no --device: the card), its output to a
+    file. They run beside phases 18 and 19 and the campaigns; phase 20
+    waits for them."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="m3-robustness-")
+    env = dict(os.environ, SOAK_SECONDS=str(ROBUST_SOAK_S))
+    procs = {}
+    for name in ROBUST_SERVICES:
+        log = open(os.path.join(out_dir, f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"m3_tpu_torch.scripts.{name}"],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT), log)
+    return {"dir": out_dir, "procs": procs, "t0": time.perf_counter()}
+
+
+def _robustness_stop(robust: dict) -> None:
+    """Stop whatever of phase 20's services still runs (a failed phase)."""
+    import shutil
+
+    for proc, log in robust["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+    shutil.rmtree(robust["dir"], ignore_errors=True)
+
+
+def _launches_line(text: str, name: str) -> dict:
+    """The JSON of a robustness module's "<name> kernel launches" line."""
+    found = [ln for ln in text.splitlines()
+             if ln.startswith(f"{name} kernel launches ")]
+    check(found, f"robustness: {name} printed no kernel launches line")
+    return json.loads(found[-1].partition(" kernel launches ")[2])
+
+
+def _robustness_phase(robust: dict) -> dict:
+    """Phase 20: the four fuzz campaigns in this process through each
+    module's main() (the launch counts set to 0 just before them, read
+    just after), then phase 20's services (_robustness_start) waited for:
+    each exits 0 having printed its checks, and the children's launches
+    (each counts its own from its listen line) join the path's. Returns the
+    path's launches; every kernel must have launched in it."""
+    import torch
+
+    from m3_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from m3_tpu_torch.scripts import (fuzz_cluster, fuzz_codec,
+                                      fuzz_durability, fuzz_index)
+
+    seed = ["--seed", str(ROBUST_SEED)]
+    campaigns = (
+        ("fuzz_codec", fuzz_codec, ["--rounds", str(ROBUST_CODEC_ROUNDS)]),
+        ("fuzz_index", fuzz_index, ["--rounds", str(ROBUST_INDEX_ROUNDS)]),
+        ("fuzz_durability", fuzz_durability,
+         ["--rounds", str(ROBUST_DURABILITY_ROUNDS)]),
+        ("fuzz_cluster", fuzz_cluster,
+         ["--rounds", "1", "--ops", str(ROBUST_CLUSTER_OPS)]))
+    t0 = time.perf_counter()
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    own = {}
+    for name, module, argv in campaigns:
+        before = kernel_launches()
+        c0 = time.perf_counter()
+        rc = module.main(argv + seed)
+        torch.cuda.synchronize()
+        got = {k: n - before[k] for k, n in kernel_launches().items()}
+        check(rc == 0, f"robustness: {name} exited {rc}")
+        _card(f"robustness {name}: {' '.join(argv + seed)}, 0 invariant "
+              f"failures, launches {got}, {time.perf_counter() - c0!r} s")
+        for k, n in got.items():
+            own[k] = own.get(k, 0) + n
+    campaigns_s = time.perf_counter() - t0
+    check(own == kernel_launches(),
+          f"robustness: the campaigns' launches {own} differ from the "
+          f"counters {kernel_launches()}")
+    children = {}
+    for name, (proc, log) in robust["procs"].items():
+        left = ROBUST_WAIT_S - (time.perf_counter() - robust["t0"])
+        try:
+            rc = proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            rc = "killed at its deadline"
+        log.seek(0)
+        text = log.read()
+        for line in text.splitlines():
+            if line.startswith(("soak:", "agg soak:", "integration step",
+                                "SOAK PASS", "AGG SOAK PASS", "SMOKE PASS")):
+                _card(f"robustness {name}: {line}")
+        check(rc == 0, f"robustness: {name} exited {rc}: {text[-3000:]}")
+        for k, n in _launches_line(text, name).items():
+            children[k] = children.get(k, 0) + n
+    launches = {k: own.get(k, 0) + children.get(k, 0) for k in own}
+    secs = time.perf_counter() - t0
+    _card(f"robustness: phase 20 in {secs!r} s (the campaigns "
+          f"{campaigns_s!r} s; the services started "
+          f"{t0 - robust['t0']!r} s before it), launches {launches} (the "
+          f"campaigns' {own}, the services' children's {children})")
+    check(all(launches[k] > 0 for k in ("pack", "decode", "hash", "window")),
+          f"phase 20 did not launch every kernel of its path: {launches}")
+    phase(f"robustness: four campaigns, two soaks and the integration smoke "
+          f"held on the card in {secs:.1f}s")
+    return launches
 
 
 if __name__ == "__main__":

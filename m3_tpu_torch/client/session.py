@@ -207,9 +207,32 @@ class HostClient:
         self.breaker = breaker if breaker is not None else Breaker(name=endpoint)
         self._on_outcome = on_outcome  # e.g. HostHealth.count
         self.retrier = Retrier(retry_opts)
+        self.pool_size = pool_size
         self._free: List[Connection] = []
         self._lock = threading.Lock()
         self._sema = threading.Semaphore(pool_size)
+
+    def _fill(self) -> None:
+        """Dial until the pool holds `pool_size` idle connections, as M3's
+        connection pool fills itself when its session opens
+        (client/connection_pool.go): a later call takes an open connection
+        instead of dialing one under load. Stops at the first refusal,
+        leaving the rest to be dialed when a call needs them."""
+        for _ in range(self.pool_size):
+            with self._lock:
+                if len(self._free) >= self.pool_size:
+                    break
+            try:
+                conn = Connection(self.endpoint, self.connect_timeout,
+                                  self.timeout)
+            except (OSError, ConnectionError):
+                break
+            with self._lock:
+                if len(self._free) < self.pool_size:
+                    self._free.append(conn)
+                    continue
+            conn.close()  # the calls in flight returned enough meanwhile
+            break
 
     def _record(self, ok: bool):
         if ok:
@@ -510,6 +533,26 @@ class Session:
         self._shard_set: Optional[ShardSet] = None
         if hasattr(topology, "subscribe"):
             topology.subscribe(lambda _m: None)  # keep map fresh
+        self._open()
+
+    def _open(self) -> None:
+        """Start every fanout worker, then fill every host's connection
+        pool on them (session.go Open fills its hosts' pools the same way,
+        waiting at most its connect timeout): the session serves its first
+        burst of concurrent calls without starting threads or dialing
+        connections under it. A host that refuses keeps a lazy pool, as
+        does a host that joins the topology later."""
+        n = self.opts.fanout_workers
+        # The executor starts a thread for each task submitted while none
+        # is idle: tasks held at one barrier until all have started keep
+        # every earlier worker busy, so each submit starts a new one.
+        start = threading.Barrier(n)
+        futures_wait([self._pool.submit(start.wait, 10.0) for _ in range(n)])
+        m = self.topology.get()
+        if m is not None:
+            futures_wait([self._pool.submit(self._client(h)._fill)
+                          for h in m.hosts.values()],
+                         timeout=self.opts.effective_connect_timeout_s)
 
     # ---------------------------------------------------------------- routing
 

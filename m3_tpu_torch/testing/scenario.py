@@ -53,6 +53,7 @@ contract holds: no acked write lost, no critical probe shed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,7 +73,7 @@ import numpy as np
 
 from ..client.session import Session, SessionOptions
 from ..cluster.placement import Instance, ShardState, initial_placement
-from ..cluster.topology import StaticTopology
+from ..cluster.topology import StaticTopology, required_reads
 from ..device import resolve
 from ..ops import kernel_launches
 from ..parallel.guard import ComputeError
@@ -83,7 +84,7 @@ from ..storage.database import warm_up
 from ..storage.repair import DatabaseRepairer, RepairOptions, ShardRepairer
 from ..storage.retriever import BlockRetriever
 from ..storage.scrub import DatabaseScrubber, ScrubOptions, ScrubStats
-from ..utils import xtime
+from ..utils import tracing, xtime
 from ..utils.health import Priority
 from ..utils.limits import Backpressure
 from ..utils.retry import RetryOptions
@@ -93,6 +94,7 @@ from .faultnet import FaultPlan
 from .loadgen import LoadGen, LoadReport, LoadSchedule, Phase
 
 __all__ = ["ChurnScenarioOptions", "ChurnScenario", "ScenarioResult",
+           "OpStep", "ReadCall", "ReadTrace",
            "WriteLedger", "KillRestartOptions", "KillRestartScenario",
            "KillRestartResult", "DiskFaultScenarioOptions",
            "DiskFaultScenario", "DiskFaultResult",
@@ -145,6 +147,155 @@ class WriteLedger:
 
 
 @dataclasses.dataclass(frozen=True)
+class OpStep:
+    """One timed step of a churn op (ChurnScenario.op_steps), on the
+    monotonic clock."""
+
+    op: str
+    step: str
+    start: float
+    seconds: float
+
+
+@dataclasses.dataclass
+class ReadCall:
+    """One replica call of a traced read, on the monotonic clock: the host
+    pool's free slots at its start; the server's handler seconds (the span
+    its reply carries; None when the reply carried none), and inside the
+    handler the storage read's wall and thread-CPU seconds (the node's
+    `rpc_fetch`, `_trace_fetch`)."""
+
+    endpoint: str
+    start: float
+    end: float
+    free_slots: int
+    handler_s: Optional[float] = None
+    read_s: Optional[float] = None
+    read_cpu_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ReadTrace:
+    """One read of the churn window (ChurnScenario.read_traces), on the
+    monotonic clock: when its fetch started and ended, its replica calls,
+    and `required`, the read consistency's replica count."""
+
+    start: float
+    end: float
+    required: int
+    calls: List[ReadCall]
+    outcome: str
+
+    def waits(self) -> Dict[str, float]:
+        """Where the read's seconds went: the fanout pool before the first
+        replica call; in the quorum-completing call, the storage read's
+        thread-CPU seconds, the rest of the storage read (its thread not
+        running: the interpreter, a lock or the device), the rest of the
+        handler (the gate, the limits scope, the reply's encode), and the
+        rest of the call (the host pool, the socket, the chaos proxy, the
+        handler thread's start); the wake-up after the quorum."""
+        total = self.end - self.start
+        done = sorted(self.calls, key=lambda c: c.end)
+        if not done:
+            return {"no replica call": total}
+        crit = done[min(self.required, len(done)) - 1]
+        first = min(c.start for c in self.calls)
+        handler = crit.handler_s or 0.0
+        read = min(crit.read_s or 0.0, handler)
+        cpu = min(crit.read_cpu_s or 0.0, read)
+        return {"fanout pool": max(0.0, first - self.start),
+                "read cpu": cpu,
+                "read not running": read - cpu,
+                "handler rest": handler - read,
+                "host pool, socket, proxy": max(
+                    0.0, crit.end - crit.start - handler),
+                "after quorum": max(0.0, self.end - crit.end)}
+
+
+class _ReadTraceSession(Session):
+    """The churn window's serving session: each replica call of a fetch
+    records a ReadCall (the server's times ride the span its reply
+    carries) under the fetch's span, kept beside the span and not in it
+    (the process's recent-trace ring renders spans as JSON), for
+    ChurnScenario.read_traces."""
+
+    def __init__(self, *args, **kwargs):
+        self.calls_by_span: Dict[int, List[ReadCall]] = {}
+        self._calls_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def _traced_call(self, span, client, method: str, **kwargs):
+        call = ReadCall(client.endpoint, time.monotonic(), 0.0,
+                        client._sema._value)
+        try:
+            return super()._traced_call(span, client, method, **kwargs)
+        finally:
+            call.end = time.monotonic()
+            if isinstance(span, tracing.Span):
+                mine = [c for c in list(span.children)
+                        if isinstance(c, dict) and c.get("tags", {}).get(
+                            "endpoint") == client.endpoint]
+                if mine:
+                    t = mine[-1]["tags"]
+                    call.handler_s = mine[-1]["duration_us"] / 1e6
+                    call.read_s = t.get("read_s")
+                    call.read_cpu_s = t.get("read_cpu_s")
+                # A replica that answers after its read's quorum finds the
+                # fetch's span finished, and its read already popped.
+                with self._calls_lock:
+                    if span.end_ns is None:
+                        self.calls_by_span.setdefault(id(span),
+                                                      []).append(call)
+
+    def pop_calls(self, span) -> List[ReadCall]:
+        """The replica calls of a finished fetch span."""
+        with self._calls_lock:
+            return self.calls_by_span.pop(id(span), [])
+
+
+def _trace_fetch(node: ClusterNode) -> None:
+    """Time the storage read of each `fetch` a node serves, wall and
+    thread CPU, onto the request's server span (its reply carries both
+    back to the _ReadTraceSession)."""
+    svc = node.server.service
+    real = svc.rpc_fetch
+
+    def rpc_fetch(*args, **kwargs):
+        w0, c0 = time.monotonic(), time.thread_time()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            sp = tracing.TRACER.current()
+            if sp is not None:
+                sp.set_tag("read_s", time.monotonic() - w0)
+                sp.set_tag("read_cpu_s", time.thread_time() - c0)
+
+    svc.rpc_fetch = rpc_fetch
+
+
+class _StepSession(Session):
+    """The churn driver's session: its peer-streaming calls are timed as
+    steps of the op in hand (`record(step)` is a context manager)."""
+
+    def __init__(self, topology, opts, record, *, device=None):
+        super().__init__(topology, opts, device=device)
+        self._record = record
+
+    def fetch_block_tiles_from_peers(self, *args, **kwargs):
+        with self._record("peer stream"):
+            return super().fetch_block_tiles_from_peers(*args, **kwargs)
+
+    def fetch_block_metadata_tiles_from_peers(self, *args, **kwargs):
+        with self._record("peer metadata"):
+            return super().fetch_block_metadata_tiles_from_peers(
+                *args, **kwargs)
+
+    def fetch_block_tiles(self, *args, **kwargs):
+        with self._record("peer tiles"):
+            return super().fetch_block_tiles(*args, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
 class ChurnScenarioOptions:
     seed: int = 7
     n_nodes: int = 4              # RF + 1 so remove-node stays replica-safe
@@ -184,6 +335,11 @@ class ChurnScenarioOptions:
     # window's p99 measures serving, not start-up (a real deployment
     # warms its kernels the same way).
     warm_kernels: bool = True
+    # Record where each read of the window waited (read_traces): the
+    # serving session files each replica call and every node times its
+    # storage reads. Off by default, so that the SLO'd window pays none
+    # of it; chip_smoke.py --churn-witness turns it on.
+    trace_reads: bool = False
     device: Optional[str] = None  # None: the CUDA card
 
 
@@ -226,6 +382,9 @@ class ChurnScenario:
             num_shards=opts.num_shards, fault_plan=FaultPlan(),
             device=self.device)
         self.ids = [b"churn-%04d" % i for i in range(opts.n_series)]
+        if opts.trace_reads:
+            for node in self.cluster.nodes.values():
+                _trace_fetch(node)
         self.ledger = WriteLedger(self.cluster.clock.now_ns)
         self.churn_log: List[str] = []
         self._churn_errors: List[str] = []
@@ -241,7 +400,17 @@ class ChurnScenario:
         self._departed: Dict[str, ClusterNode] = {}
         # Serving session rides the chaos proxies; retries kept tight so
         # open-loop threads do not pile up behind long backoffs.
-        self.session = Session(
+        # Each churn op's steps and, under `trace_reads`, each served
+        # read's replica calls, on the monotonic clock: which reads an
+        # op's step held, and where they waited (chip_smoke.py
+        # --churn-witness prints both).
+        self.op_steps: List[OpStep] = []
+        self.read_traces: List[ReadTrace] = []
+        # The op in hand, per thread: the churn thread's ops, then the
+        # main thread's convergence repairs.
+        self._op = threading.local()
+        serving = _ReadTraceSession if opts.trace_reads else Session
+        self.session = serving(
             self.cluster.topology,
             SessionOptions(timeout_s=opts.session_timeout_s,
                            retry=RetryOptions(max_attempts=2,
@@ -254,10 +423,20 @@ class ChurnScenario:
             device=self.device)
         # The churn driver gets its own session: bootstrap/repair streams
         # must not contend with the serving pool's sockets.
-        self.admin_session = Session(
+        self.admin_session = _StepSession(
             self.cluster.topology,
             SessionOptions(timeout_s=max(10.0, opts.session_timeout_s)),
-            device=self.device)
+            self._step, device=self.device)
+
+    @contextlib.contextmanager
+    def _step(self, step: str):
+        """Time one step of the churn op in hand into `op_steps`."""
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self.op_steps.append(OpStep(getattr(self._op, "name", ""), step,
+                                        t0, time.monotonic() - t0))
 
     # ------------------------------------------------------------------ load
 
@@ -281,8 +460,11 @@ class ChurnScenario:
             # writes the cluster owes the verifier.
             self.ledger.ack(sid, t_ns, value)
         elif kind == "read":
-            self.session.fetch(self.NS, sid, 0,
-                               self.cluster.clock.now_ns + xtime.HOUR)
+            if self.opts.trace_reads:
+                self._traced_read(sid)
+            else:
+                self.session.fetch(self.NS, sid, 0,
+                                   self.cluster.clock.now_ns + xtime.HOUR)
         else:  # critical: health + replication-plane metadata probe
             m = self.cluster.topology.get()
             hosts = list(m.hosts.values())
@@ -296,6 +478,28 @@ class ChurnScenario:
                             start_ns=0,
                             end_ns=self.cluster.clock.now_ns + xtime.HOUR,
                             page_token=0)
+
+    def _traced_read(self, sid: bytes) -> None:
+        """One read of the window, its ReadTrace kept in `read_traces`."""
+        m = self.cluster.topology.get()
+        required = min(required_reads(
+            self.session.opts.read_consistency, m.replica_factor),
+            m.replica_factor)
+        outcome = "ok"
+        t0 = time.monotonic()
+        with tracing.span("churn.read") as sp:
+            try:
+                self.session.fetch(self.NS, sid, 0,
+                                   self.cluster.clock.now_ns + xtime.HOUR)
+            except Exception as e:
+                outcome = type(e).__name__
+                raise
+            finally:
+                fetch = [c for c in getattr(sp, "children", ())
+                         if getattr(c, "name", "") == "client.fetch"]
+                calls = self.session.pop_calls(fetch[0]) if fetch else []
+                self.read_traces.append(ReadTrace(
+                    t0, time.monotonic(), required, calls, outcome))
 
     # ----------------------------------------------------------------- churn
 
@@ -316,10 +520,13 @@ class ChurnScenario:
             chain=("peers", "uninitialized_topology"),
             ctx=BootstrapContext(session=self.admin_session, host_id=host_id,
                                  placement=p, peer_deadline_s=30.0))
-        proc.run(node.db, shard_ids=init_shards)
-        self._hand_off(node, [a for a in inst.shards.values()
-                              if a.state == ShardState.INITIALIZING])
-        self.cluster.placement_svc.mark_instance_available(host_id)
+        with self._step("bootstrap"):
+            proc.run(node.db, shard_ids=init_shards)
+        with self._step("hand-off"):
+            self._hand_off(node, [a for a in inst.shards.values()
+                                  if a.state == ShardState.INITIALIZING])
+        with self._step("mark available"):
+            self.cluster.placement_svc.mark_instance_available(host_id)
 
     def _hand_off(self, node: ClusterNode, assignments) -> None:
         """Move each receiving shard's unsealed points from its source to
@@ -356,9 +563,14 @@ class ChurnScenario:
 
     def _churn_op(self, op: str):
         c = self.cluster
+        self._op.name = op
         if op == "add":
             self._op_counter += 1
-            node = c.add_node(f"joiner{self._op_counter}")
+            self._op.name = f"add joiner{self._op_counter}"
+            with self._step("new node"):
+                node = c.add_node(f"joiner{self._op_counter}")
+            if self.opts.trace_reads:
+                _trace_fetch(node)
             self.churn_log.append(f"add {node.host_id}")
             self._bootstrap_initializing(node.host_id)
         elif op == "remove":
@@ -369,8 +581,10 @@ class ChurnScenario:
                 return
             victim = self._rng.choice(sorted(c.nodes))
             leaver = c.nodes[victim]
+            self._op.name = f"remove {victim}"
             try:
-                c.remove_node(victim)
+                with self._step("placement"):
+                    c.remove_node(victim)
             except ValueError as e:
                 # Replica-safety refusal (pending moves unsettled): a
                 # legitimate outcome under concurrent churn.
@@ -386,13 +600,19 @@ class ChurnScenario:
                     self._bootstrap_initializing(host_id)
         elif op == "replace":
             victim = self._rng.choice(sorted(c.nodes))
-            node = c.replace_node(victim)
+            self._op.name = f"replace {victim}"
+            with self._step("new node"):
+                node = c.replace_node(victim)
+            if self.opts.trace_reads:
+                _trace_fetch(node)
             self.churn_log.append(f"replace {victim} -> {node.host_id}")
             self._bootstrap_initializing(node.host_id)
         elif op == "repair":
             host_id = self._rng.choice(sorted(c.nodes))
             self.churn_log.append(f"repair {host_id}")
-            self._run_repair(host_id)
+            self._op.name = f"repair {host_id}"
+            with self._step("repair"):
+                self._run_repair(host_id)
         else:
             raise ValueError(f"unknown churn op {op!r}")
 
@@ -465,6 +685,7 @@ class ChurnScenario:
 
         # ---------------- convergence: quiesce -> seal -> repair -> verify
         self._window_close()
+        self._op.name = "converge"
         self.cluster.clock.advance(4 * xtime.HOUR + 11 * xtime.MINUTE)
         self.cluster.tick_all()
         for host_id in sorted(self.cluster.nodes):

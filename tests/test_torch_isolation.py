@@ -796,3 +796,35 @@ def test_chip_smoke_defines_every_phase_before_it_runs():
     defined = {node.name for node in tree.body[:main_at]
                if isinstance(node, ast.FunctionDef)}
     assert {"main", "_services_phase", "_harness_phase"} <= defined
+
+
+_SCRIPTS = r"""
+import importlib, json, pkgutil, sys
+import m3_tpu_torch.scripts as pkg
+names = [info.name for info in pkgutil.walk_packages(pkg.__path__,
+                                                     "m3_tpu_torch.scripts.")]
+for name in names:
+    importlib.import_module(name)
+mods = sorted(m for m in sys.modules
+              if m in ("jax", "m3_tpu", "scripts") or m.startswith(
+                  ("jax.", "m3_tpu.", "scripts.")) or m.startswith(
+                  ("fuzz_", "_soak", "soak", "integration_smoke",
+                   "check_all")))
+print(json.dumps({"names": names, "mods": mods}))
+"""
+
+
+def test_scripts_import_neither_jax_nor_the_reference():
+    """Every module of m3_tpu_torch/scripts (the robustness tier) imports
+    in a fresh process without JAX, the m3_tpu package or the reference's
+    scripts/ directory; their devices resolve on use (the card by default,
+    tests/test_torch_campaigns.py)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _SCRIPTS], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {n.rsplit(".", 1)[-1] for n in out["names"]} == {
+        "check_all", "fuzz_cluster", "fuzz_codec", "fuzz_durability",
+        "fuzz_index", "integration_smoke", "soak", "soak_aggregator"}
+    assert out["mods"] == []
